@@ -1,0 +1,54 @@
+"""K4 — ZSSD score per (filter, epipolar step) row.
+
+Port of ``sdvo_tpu.ops.pallas_depth.depth_scores``. ``depth_scores`` is the
+wrapper: CUDA tensors go to ``csrc/depth_scores.cu`` (one warp per row), CPU
+tensors to ``depth_scores_plain``. Each row samples a P×P bilinear patch from
+its window, subtracts the patch mean and sums |· − cref|, cref being the
+zero-mean warped reference patch; ``ok`` is the value-sampler support rule.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from sdvo_tpu_torch.ops import build
+from sdvo_tpu_torch.ops.window_sampler import sample_windows
+
+launches = 0
+plain_cuda_calls = 0
+
+
+def depth_scores_plain(windows, cref, offs, patch: int = 7):
+    """Plain PyTorch K4. windows (R, WH, WW), cref (R, P²), offs (R, 2).
+    Returns (score (R,), ok (R,) bool)."""
+    global plain_cuda_calls
+    if windows.is_cuda:
+        plain_cuda_calls += 1
+    f32 = torch.float32
+    vals, ok = sample_windows(windows.to(f32), offs.to(f32), patch)
+    mean_v = vals.sum(1, keepdim=True) / float(patch * patch)
+    return torch.abs((vals - mean_v) - cref.to(f32)).sum(1), ok
+
+
+def depth_scores(windows, cref, offs, patch: int = 7) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ZSSD scores of every row. Returns (score (R,) float32, ok (R,) bool)."""
+    if not windows.is_cuda:
+        return depth_scores_plain(windows, cref, offs, patch)
+    global launches
+    dev = windows.device
+    R, WH, WW = windows.shape
+    P2 = patch * patch
+    build.check_inputs("depth_scores", dev,
+                       {"windows": (R, WH, WW), "cref": (R, P2), "offs": (R, 2)},
+                       windows=windows, cref=cref, offs=offs)
+    score = torch.empty((R,), dtype=torch.float32, device=dev)
+    ok = torch.empty((R,), dtype=torch.float32, device=dev)
+    code = build.library().sdvo_depth_scores(
+        windows.data_ptr(), cref.data_ptr(), offs.data_ptr(), score.data_ptr(), ok.data_ptr(),
+        R, WH, WW, patch, build.stream_ptr(dev),
+    )
+    build.check(code, "depth_scores")
+    launches += 1
+    return score, ok > 0.5
