@@ -7,8 +7,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 2. Builds the hand-written kernels from ``sdvo_tpu_torch/csrc`` (nvcc, sm_90a).
 3. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (K1: 256 features at all four levels; K2: 150; K3: 150;
-   K4: 8192 rows) and times both.
-4. Drives ``DeviceSystem`` — bootstrap plus chunks of 8 supersteps — on the
+   K4: 8192 rows) and times both: the wrapper on the host clock, the kernel
+   alone on the device (beside an empty kernel), and the least time the card
+   could take for the same work (``selfcheck.bound_ms``).
+4. Drives ``DeviceSystem`` (on its default device, the card) — bootstrap plus
+   chunks of 8 supersteps — on the
    rendered 1241×376 scene of ``bench.py`` with its overrides, asserts its
    accuracy gates (no failed frame, exact keyframe cadence, scale-aligned
    ATE < 0.10 m, drift < 1.5 %), that every kernel launched during that run
@@ -20,7 +23,6 @@ Imports nothing of JAX. Exits non-zero on any failure, without a result.
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -43,36 +45,54 @@ def _require(cond: bool, message: str):
         raise RuntimeError(message)
 
 
-def _card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def check_kernels(device, failures):
+    """Each kernel against its plain version at the main path's shapes, with
+    its times: the wrapper's on the host clock (``ms``), the kernel's on the
+    device (``device_ms``), the plain version's, and the card's bound."""
     from sdvo_tpu_torch.ops import selfcheck
 
+    empty_ms = selfcheck.device_ms(selfcheck.empty_launch(device))
+    print(f"empty kernel: device {empty_ms:.5f} ms a launch (the floor under a one-launch kernel)",
+          flush=True)
+    print("library_ms: none for any of the four kernels: no single PyTorch call computes a whole "
+          "LM solve or a fused sample-centre-ZSSD pass", flush=True)
     rows = {}
-    for name, kernel, plain in selfcheck.kernel_cases(device):
+    for name, args, kw in selfcheck.kernel_problems(device):
         base = name.split("[")[0]
+        kernel, plain = selfcheck.case_calls(name, args, kw)
         got, want = kernel(), plain()
         err, ok = selfcheck.agrees(name, got, want)
         ms = selfcheck.median_ms(kernel)
         plain_ms = selfcheck.median_ms(plain)
+        launch, outs = selfcheck.kernel_launcher(name, args, kw)
+        dev_ms = selfcheck.device_ms(launch)
+        iterations = None
+        if base in ("lm_align_level", "pose_refine"):
+            iterations = int(outs[1][2])  # what the kernel reports of this problem
+        bound = selfcheck.bound_ms(name, selfcheck.problem_shapes(name, args), iterations)
         detail = ""
         if base == "fa_align_batch":
             uv_d = (got[0] - want[0]).abs().max(1).values
             flipped = int((uv_d > selfcheck.TOLERANCE[base]).sum())
             detail = (f" ({flipped} of {uv_d.numel()} features one LM step apart, at most "
                       f"{selfcheck.FA_STEP_PX} px and {100 * selfcheck.FA_FLIP_SHARE:g} % allowed)")
+        its = "" if iterations is None else f", {iterations} iterations"
         print(f"kernel {name}: max_abs_err {err:.3e} (tolerance {selfcheck.TOLERANCE[base]:g}"
-              f"{detail}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+              f"{detail}){its}, wrapper {ms:.4f} ms, device {dev_ms:.5f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound.ms:.3e} ms ({bound.by}: {bound.bytes} bytes, {bound.flops} operations)",
+              flush=True)
         if not ok:
             failures.append(f"{name} disagrees with its plain version: {err}")
-        r = rows.setdefault(base, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+        r = rows.setdefault(base, {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                                   "bound_ms": 0.0, "t_bytes": 0.0, "t_flops": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += ms  # K1: summed over the four levels of one frame
-        r["plain_ms"] += plain_ms
+        for key, value in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
+                           ("bound_ms", bound.ms),  # K1: summed over the four levels of one frame
+                           ("t_bytes", bound.bytes / selfcheck.PEAK_BYTES_PER_S),
+                           ("t_flops", bound.flops / selfcheck.PEAK_F32_FLOPS)):
+            r[key] += value
+    for r in rows.values():
+        r["bound_by"] = "bytes" if r.pop("t_bytes") >= r.pop("t_flops") else "operations"
     return rows
 
 
@@ -92,7 +112,8 @@ def run_main_path(device, card: str):
     config = load_config(overrides={
         "initialization": {"disparity_threshold": 3, "threshold_gradient_magnitude": 20},
     })
-    ds = DeviceSystem(config, supersteps_per_chunk=SUPERSTEPS_PER_CHUNK, device=device)
+    ds = DeviceSystem(config, supersteps_per_chunk=SUPERSTEPS_PER_CHUNK)  # the card by default
+    _require(ds.device.type == "cuda", f"DeviceSystem chose {ds.device}, not the card")
 
     for m in mods.values():
         m.launches = 0
@@ -129,7 +150,8 @@ def run_main_path(device, card: str):
     drift = ate / max(path, 1e-9)
     print(f"main path: {n_frames} frames, bootstrap {t_boot:.2f} s, chunk seconds "
           f"{[round(s, 4) for s in chunk_s]}, ATE {ate:.4f} m over {path:.2f} m "
-          f"({100 * drift:.3f} % drift), launches {launches}", flush=True)
+          f"({100 * drift:.3f} % drift; with the first kernels of K1 and K3 it was 0.0016 m, "
+          f"0.058 %), launches {launches}", flush=True)
     _require(ate < 0.10 and drift < 0.015, f"accuracy gate failed: ATE {ate}, drift {drift}")
     for k, n in launches.items():
         _require(n > 0, f"kernel {k} never launched on the main path")
@@ -149,10 +171,10 @@ def main() -> int:
         return 1
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
-    from sdvo_tpu_torch.ops import build
+    from sdvo_tpu_torch.ops import build, selfcheck
 
     device = torch.device("cuda:0")
-    card = _card_line()
+    card = selfcheck.card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}",
           flush=True)
@@ -170,7 +192,10 @@ def main() -> int:
         src, replaces = SOURCES[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"]})
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None,
+                        "device_ms": r["device_ms"],
+                        "launches_per_frame": selfcheck.LAUNCHES_PER_FRAME[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

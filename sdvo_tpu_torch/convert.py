@@ -16,6 +16,7 @@ import torch
 
 from sdvo_tpu_torch.align.image_alignment import AlignFeatures
 from sdvo_tpu_torch.depth.filter import FilterBank
+from sdvo_tpu_torch.device import resolve_device
 from sdvo_tpu_torch.geometry.se3 import SE3
 from sdvo_tpu_torch.mapping.device_map import DeviceMap
 from sdvo_tpu_torch.pipeline.device_system import DeviceFilters, TrackRef, VOState
@@ -24,8 +25,11 @@ _TYPES = {cls.__name__: cls for cls in (VOState, DeviceMap, DeviceFilters, Filte
                                         SE3, AlignFeatures)}
 
 
-def vo_state_from_numpy(tree, device="cpu") -> VOState:
-    """JAX ``VOState`` (numpy leaves) → the port's ``VOState`` on ``device``."""
+def vo_state_from_numpy(tree, device=None) -> VOState:
+    """JAX ``VOState`` (numpy leaves) → the port's ``VOState`` on ``device``
+    (the CUDA card by default, raising where there is none; ``device="cpu"``
+    asks for the CPU)."""
+    device = resolve_device(device)
     if hasattr(tree, "_fields"):
         cls = _TYPES[type(tree).__name__]
         return cls(*[vo_state_from_numpy(getattr(tree, f), device) for f in cls._fields])

@@ -2,9 +2,9 @@
 //
 // All arithmetic is float32, as the Pallas kernels of sdvo_tpu/ops. The
 // scalar LM logic (Cholesky, SE3 exp, accept/reject) is evaluated
-// redundantly by every thread of a block from block-reduced sums: the
-// reductions end with every thread holding the same totals, so every thread
-// takes the same branch and no broadcast through shared memory is needed.
+// redundantly by every thread from reduced sums that are bit-identical in
+// every thread (a warp's xor-shuffle sums here, a block's in lm_block.cuh),
+// so every thread takes the same branch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,109 +29,46 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Block-wide sum of K values per thread. `sm` holds >= 32*K floats. On return
-// every thread holds the block totals (summed in warp order, so all threads
-// agree bit for bit).
-template <int K>
-__device__ void block_sum(float (&v)[K], float* sm) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) sm[warp * K + k] = v[k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float s = 0.f;
-    for (int w = 0; w < nw; ++w) s += sm[w * K + k];
-    v[k] = s;
-  }
-  __syncthreads();
-}
-
-__device__ inline float block_min(float v, float* sm) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  v = warp_min(v);
-  if (lane == 0) sm[warp] = v;
-  __syncthreads();
-  float s = sm[0];
-  for (int w = 1; w < nw; ++w) s = fminf(s, sm[w]);
-  __syncthreads();
-  return s;
-}
-
-__device__ inline float block_max(float v, float* sm) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  v = warp_max(v);
-  if (lane == 0) sm[warp] = v;
-  __syncthreads();
-  float s = sm[0];
-  for (int w = 1; w < nw; ++w) s = fmaxf(s, sm[w]);
-  __syncthreads();
-  return s;
-}
-
-// One zoom stage of the 16-bin median (sdvo_tpu/ops/pallas_lm.py::_bin_median):
-// given the cumulative counts cnt[b] = #{x <= lo + (b+1)/16·span}, update the
-// median estimate and narrow [lo, hi] to the bin holding the half count.
-__device__ inline void bin_median_stage(const float (&cnt)[kMadBins], float half_n,
-                                        float& lo, float& hi, float& med) {
-  const float span = fmaxf(hi - lo, 1e-12f);
-  float prev = 0.f, new_lo = lo, new_hi = hi;
-  for (int b = 0; b < kMadBins; ++b) {
-    const bool hit = (prev < half_n) && (cnt[b] >= half_n);
-    const float frac = (half_n - prev) / fmaxf(cnt[b] - prev, 1.f);
-    if (hit) {
-      med = lo + ((float)b + frac) * (span / kMadBins);
-      new_lo = lo + (float)b * (span / kMadBins);
-      new_hi = lo + ((float)b + 1.f) * (span / kMadBins);
-    }
-    prev = cnt[b];
-  }
-  lo = new_lo;
-  hi = new_hi;
-}
-
-__device__ __forceinline__ void bin_thresholds(float lo, float hi, float (&thr)[kMadBins]) {
-  const float span = fmaxf(hi - lo, 1e-12f);
-#pragma unroll
-  for (int b = 0; b < kMadBins; ++b) thr[b] = lo + (((float)b + 1.f) / kMadBins) * span;
-}
-
 // 6×6 Cholesky solve of (H + diag) x = g; H packed lower-triangular row-major
 // (index i*(i+1)/2 + j). Returns false on a non-positive pivot or a
-// non-finite solution (sdvo_tpu/ops/pallas_lm.py::_chol6_scalar).
+// non-finite solution (sdvo_tpu/ops/pallas_lm.py::_chol6_scalar). The solve
+// is one thread's dependent chain, so each pivot's reciprocal is formed once
+// and multiplied, instead of 27 divisions.
 __device__ inline bool chol6_solve(const float (&H)[21], const float (&g)[6], float (&x)[6]) {
-  float L[21];
+  float L[21], inv[6];
   bool ok = true;
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
+#pragma unroll
     for (int j = 0; j <= i; ++j) {
       float s = H[i * (i + 1) / 2 + j];
+#pragma unroll
       for (int k = 0; k < j; ++k) s -= L[i * (i + 1) / 2 + k] * L[j * (j + 1) / 2 + k];
       if (i == j) {
         ok = ok && (s > 0.f);
         L[i * (i + 1) / 2 + j] = sqrtf(fmaxf(s, 1e-30f));
+        inv[i] = 1.f / L[i * (i + 1) / 2 + j];
       } else {
-        L[i * (i + 1) / 2 + j] = s / L[j * (j + 1) / 2 + j];
+        L[i * (i + 1) / 2 + j] = s * inv[j];
       }
     }
   }
   float y[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
     float s = g[i];
+#pragma unroll
     for (int k = 0; k < i; ++k) s -= L[i * (i + 1) / 2 + k] * y[k];
-    y[i] = s / L[i * (i + 1) / 2 + i];
+    y[i] = s * inv[i];
   }
+#pragma unroll
   for (int i = 5; i >= 0; --i) {
     float s = y[i];
+#pragma unroll
     for (int k = i + 1; k < 6; ++k) s -= L[k * (k + 1) / 2 + i] * x[k];
-    x[i] = s / L[i * (i + 1) / 2 + i];
+    x[i] = s * inv[i];
   }
+#pragma unroll
   for (int i = 0; i < 6; ++i) ok = ok && isfinite(x[i]);
   return ok;
 }

@@ -6,19 +6,34 @@
 // Nielsen-damped 6×6 Cholesky; the left update T <- exp(−dx)∘T; accept on a
 // chi² decrease; the relative-decrease exit.
 //
-// What bounds it on an H100: one thread block on one SM of 132 holds all
-// observations (150 on the main path, 450 residuals). Each iteration is two
-// robust-scale evaluations of four 16-bin count stages plus the H/g
-// reduction — a chain of ~14 dependent block reductions over a few hundred
-// values, so it is latency-bound. Residuals are recomputed from the pose in
-// each pass (twelve flops per observation) instead of being stored, so the
-// kernel needs no scratch memory at all.
-#include "common.cuh"
+// What bounds it on an H100: latency alone. The problem is 4.3 KB (150
+// observations on the main path) and a few hundred kFLOP, nanoseconds of
+// either; the time is the serial chain of an LM iteration — the H/g sum, the
+// Cholesky and SE(3) exp, and the seven dependent reductions of the robust
+// scale of the candidate pose.
+//
+// What the design does about it (the shared parts are in lm_block.cuh):
+//  * The block is sized to the problem. Up to 160 observations run as five
+//    warps, one observation (three residuals) a thread, so that a pass over
+//    the residuals is a handful of instructions and the chain is the
+//    reductions alone; the same in ONE warp at five observations a lane
+//    (no block barrier at all, `__syncwarp` only) measured twice as slow,
+//    because one warp runs its 15 values' passes one instruction at a
+//    time. Larger problems take eight warps, four observations a thread.
+//  * The accepted pose carries its scale c and chi²: an iteration evaluates
+//    the robust scale once, for the candidate, not a second time for the
+//    pose it already knows.
+//  * A thread keeps an evaluation's residuals in registers for its seven
+//    passes (count/min/max, four histogram stages, max deviation, chi²); the
+//    observation's p, f and 1/|p| are formed once more for the H/g pass.
+//  * The Cholesky, the SE(3) exp and each median stage's decision run in
+//    warp 0 alone and are published through shared memory.
+//  * Problems beyond the register tiers recompute the residual in each pass
+//    (Resid<0>), so any N runs.
+#include "lm_block.cuh"
 
 namespace sdvo {
 namespace {
-
-constexpr int kPoseThreads = 256;
 
 struct PoseArgs {
   const float* pts;  // (N, 3) world points
@@ -28,125 +43,98 @@ struct PoseArgs {
 };
 
 struct PoseObs {
-  float r[3], f[3], p[3], inv_n, vis;
+  float r[3], f[3], p[3], inv_n;
 };
 
-__device__ PoseObs pose_obs(const PoseArgs& a, int n, const float (&R)[9], const float (&t)[3]) {
-  PoseObs o;
-  const float X = a.pts[3 * n], Y = a.pts[3 * n + 1], Z = a.pts[3 * n + 2];
+// observation n at pose (R, t); false when n is out of range or not valid
+// (the loads then come from observation 0 and r = 0: no branch)
+__device__ __forceinline__ bool pose_obs(const PoseArgs& a, int n, const float (&R)[9],
+                                         const float (&t)[3], PoseObs& o) {
+  const bool in = n < a.N;
+  n = in ? n : 0;
+  const bool ok = in && __ldg(a.vis + n) > 0.5f;
+  const float X = __ldg(a.pts + 3 * n), Y = __ldg(a.pts + 3 * n + 1), Z = __ldg(a.pts + 3 * n + 2);
   o.p[0] = X * R[0] + Y * R[1] + Z * R[2] + t[0];
   o.p[1] = X * R[3] + Y * R[4] + Z * R[5] + t[1];
   o.p[2] = X * R[6] + Y * R[7] + Z * R[8] + t[2];
   const float nrm = sqrtf(fmaxf(o.p[0] * o.p[0] + o.p[1] * o.p[1] + o.p[2] * o.p[2], 1e-24f));
   o.inv_n = 1.f / nrm;
-  o.vis = a.vis[n];
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
     o.f[i] = o.p[i] / nrm;
-    o.r[i] = (o.f[i] - a.brg[3 * n + i]) * o.vis;
+    o.r[i] = ok ? o.f[i] - __ldg(a.brg + 3 * n + i) : 0.f;
   }
-  return o;
+  return ok;
 }
 
-__device__ float pose_bin_median(const PoseArgs& a, const float (&R)[9], const float (&t)[3],
-                                 bool dev, float center, float lo, float hi, float half_n,
-                                 float* sm) {
-  float med = hi;
-  for (int stage = 0; stage < 2; ++stage) {
-    float thr[kMadBins];
-    bin_thresholds(lo, hi, thr);
-    float cnt[kMadBins];
-#pragma unroll
-    for (int b = 0; b < kMadBins; ++b) cnt[b] = 0.f;
-    for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-      const PoseObs o = pose_obs(a, n, R, t);
-      if (o.vis < 0.5f) continue;
-      for (int i = 0; i < 3; ++i) {
-        const float x = dev ? fabsf(o.r[i] - center) : o.r[i];
-#pragma unroll
-        for (int b = 0; b < kMadBins; ++b) cnt[b] += (x <= thr[b]) ? 1.f : 0.f;
-      }
-    }
-    block_sum<kMadBins>(cnt, sm);
-    bin_median_stage(cnt, half_n, lo, hi, med);
+// S observations a thread (3·S residual slots) in registers, or any number
+// recomputed (S = 0). Observation j of thread t is n = j·kThreads + t.
+template <int kThreads, int S>
+struct PoseResid {
+  static constexpr int kSlots = 3 * S;
+  float r[3 * S];
+  uint32_t vis;  // bit j: observation j is valid
+  __device__ bool get(int s, float& x) const {
+    x = r[s];
+    return (vis >> (s / 3)) & 1u;
   }
-  return med;
-}
-
-// Tukey cutoff c of the residuals at (R, t) and their chi².
-__device__ void pose_scale(const PoseArgs& a, const float (&R)[9], const float (&t)[3],
-                           float* sm, float& c, float& chi) {
-  float lo = kBig, hi = -kBig, nv[1] = {0.f};
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    const PoseObs o = pose_obs(a, n, R, t);
-    nv[0] += o.vis * 3.f;
-    if (o.vis < 0.5f) continue;
-    for (int i = 0; i < 3; ++i) {
-      lo = fminf(lo, o.r[i]);
-      hi = fmaxf(hi, o.r[i]);
-    }
-  }
-  block_sum<1>(nv, sm);
-  lo = block_min(lo, sm);
-  hi = block_max(hi, sm);
-  const float half_n = 0.5f * fmaxf(nv[0], 1.f);
-  const float med = pose_bin_median(a, R, t, false, 0.f, lo, hi, half_n, sm);
-  float hi2 = 0.f;
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    const PoseObs o = pose_obs(a, n, R, t);
-    if (o.vis < 0.5f) continue;
-    for (int i = 0; i < 3; ++i) hi2 = fmaxf(hi2, fabsf(o.r[i] - med));
-  }
-  hi2 = block_max(hi2, sm);
-  const float mad = pose_bin_median(a, R, t, true, med, 0.f, hi2, half_n, sm);
-  c = 4.6851f * fmaxf(1.4826f * mad, 1e-12f);
-  float ch[1] = {0.f};
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    const PoseObs o = pose_obs(a, n, R, t);
-    for (int i = 0; i < 3; ++i) {
-      const float rv = o.r[i];
-      float w = 1.f - (rv * rv) / (c * c);
-      w = (fabsf(rv) <= c) ? w * w * o.vis : 0.f;
-      ch[0] += w * rv * rv;
-    }
-  }
-  block_sum<1>(ch, sm);
-  chi = ch[0];
-}
-
-__global__ void __launch_bounds__(kPoseThreads) pose_refine_kernel(
-    PoseArgs a, const float* __restrict__ pose_in, float* __restrict__ out_pose,
-    float* __restrict__ out_stats, int max_iters, float min_rel_decrease) {
-  __shared__ float sm[32 * 27];
+};
+template <int kThreads>
+struct PoseResid<kThreads, 0> {
+  static constexpr int kSlots = 0;
+  const PoseArgs* a;
   float R[9], t[3];
-  for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j) R[3 * i + j] = pose_in[4 * i + j];
-    t[i] = pose_in[4 * i + 3];
+  __device__ int slots() const { return 3 * ((a->N + kThreads - 1) / kThreads); }
+  __device__ bool get(int s, float& x) const {
+    PoseObs o;
+    const int j = s / 3;
+    const bool ok = pose_obs(*a, j * kThreads + (int)threadIdx.x, R, t, o);
+    x = o.r[s - 3 * j];
+    return ok;
   }
-  float chi, c;
-  pose_scale(a, R, t, sm, c, chi);
-  float lam = 1e-2f, nu = 2.f;
-  int it = 0;
-  bool done = false;
-  while (it < max_iters && !done) {
-    float chi_cur;  // equals chi: the accepted pose's own scale evaluation
-    pose_scale(a, R, t, sm, c, chi_cur);
-    float hg[27];
+};
+
+template <int kThreads, int S>
+struct PoseProblem {
+  using Resid = PoseResid<kThreads, S>;
+  static constexpr bool kLeftUpdate = true;
+  const PoseArgs& a;
+
+  __device__ void evaluate(const float (&R)[9], const float (&t)[3], Resid& out) const {
+    if constexpr (S > 0) {
+      out.vis = 0u;
 #pragma unroll
-    for (int i = 0; i < 27; ++i) hg[i] = 0.f;
-    for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-      const PoseObs o = pose_obs(a, n, R, t);
+      for (int j = 0; j < S; ++j) {
+        PoseObs o;
+        const bool ok = pose_obs(a, j * kThreads + (int)threadIdx.x, R, t, o);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) out.r[3 * j + i] = o.r[i];
+        out.vis |= (uint32_t)ok << j;
+      }
+    } else {
+      out.a = &a;
+      for (int i = 0; i < 9; ++i) out.R[i] = R[i];
+      for (int i = 0; i < 3; ++i) out.t[i] = t[i];
+    }
+  }
+
+  __device__ void normal_equations(const Resid&, const float (&R)[9], const float (&t)[3],
+                                   float c, float (&hg)[32]) const {
+    for (int n = threadIdx.x; n < a.N; n += kThreads) {
+      PoseObs o;
+      const bool ok = pose_obs(a, n, R, t, o);
       // Q = −hat(p)
       const float Q[3][3] = {{0.f, o.p[2], -o.p[1]}, {-o.p[2], 0.f, o.p[0]}, {o.p[1], -o.p[0], 0.f}};
+#pragma unroll
       for (int i = 0; i < 3; ++i) {
         const float rv = o.r[i];
-        float w = 1.f - (rv * rv) / (c * c);
-        w = (fabsf(rv) <= c) ? w * w * o.vis : 0.f;
+        const float w = ok ? tukey_weight(rv, c) : 0.f;
         float Jrow[6];
-        float dfdp[3];
-        for (int j = 0; j < 3; ++j) dfdp[j] = ((i == j ? 1.f : 0.f) - o.f[i] * o.f[j]) * o.inv_n;
-        for (int j = 0; j < 3; ++j) Jrow[j] = dfdp[j];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) Jrow[j] = ((i == j ? 1.f : 0.f) - o.f[i] * o.f[j]) * o.inv_n;
+#pragma unroll
         for (int k = 0; k < 3; ++k)
-          Jrow[3 + k] = dfdp[0] * Q[0][k] + dfdp[1] * Q[1][k] + dfdp[2] * Q[2][k];
+          Jrow[3 + k] = Jrow[0] * Q[0][k] + Jrow[1] * Q[1][k] + Jrow[2] * Q[2][k];
 #pragma unroll
         for (int p = 0; p < 6; ++p) {
           const float jw = w * Jrow[p];
@@ -156,73 +144,44 @@ __global__ void __launch_bounds__(kPoseThreads) pose_refine_kernel(
         }
       }
     }
-    block_sum<27>(hg, sm);
-    float H[21], g[6];
-    for (int i = 0; i < 21; ++i) H[i] = hg[i];
-    for (int i = 0; i < 6; ++i) g[i] = hg[21 + i];
-    float diag_max = H[0];
-    for (int i = 1; i < 6; ++i) diag_max = fmaxf(diag_max, fabsf(H[i * (i + 1) / 2 + i]));
-    const float lam_eff = (it == 0) ? lam * diag_max : lam;
-    for (int i = 0; i < 6; ++i) H[i * (i + 1) / 2 + i] += lam_eff;
-    float dx[6], mdx[6];
-    const bool okc = chol6_solve(H, g, dx);
-    for (int i = 0; i < 6; ++i) {
-      if (!okc) dx[i] = 0.f;
-      mdx[i] = -dx[i];
-    }
-    float dR[9], dt[3], R_new[9], t_new[3];
-    se3_exp(mdx, dR, dt);
-    mat3_mul(dR, R, R_new);
-    for (int i = 0; i < 3; ++i)
-      t_new[i] = dR[3 * i] * t[0] + dR[3 * i + 1] * t[1] + dR[3 * i + 2] * t[2] + dt[i];
-    float c_n, chi_n;
-    pose_scale(a, R_new, t_new, sm, c_n, chi_n);
-    float pred = 0.f, step2 = 0.f;
-    for (int i = 0; i < 6; ++i) {
-      pred += dx[i] * (lam_eff * dx[i] + g[i]);
-      step2 += dx[i] * dx[i];
-    }
-    const float rho = (chi - chi_n) / fmaxf(pred, 1e-30f);
-    const bool success = (chi - chi_n) > 0.f;
-    const float lam_next = nielsen_lambda(success, lam_eff, rho, nu);
-    const float nu_next = success ? 2.f : nu * 2.f;
-    const bool small = step2 < 1e-16f;
-    const float rel_dec = (chi - chi_n) / fmaxf(chi, 1e-30f);
-    const float rel_pred = pred / fmaxf(chi, 1e-30f);
-    done = small || !okc || (success && rel_dec < min_rel_decrease) ||
-           (rel_pred < 0.1f * min_rel_decrease);
-    if (success && !small) {
-      for (int i = 0; i < 9; ++i) R[i] = R_new[i];
-      for (int i = 0; i < 3; ++i) t[i] = t_new[i];
-      chi = chi_n;
-    }
-    lam = lam_next;
-    nu = nu_next;
-    ++it;
   }
-  float nv[1] = {0.f};
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) nv[0] += a.vis[n] * 3.f;
-  block_sum<1>(nv, sm);
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < 3; ++i) {
-      for (int j = 0; j < 3; ++j) out_pose[4 * i + j] = R[3 * i + j];
-      out_pose[4 * i + 3] = t[i];
-    }
-    out_stats[0] = chi;
-    out_stats[1] = fmaxf(nv[0], 1.f);
-    out_stats[2] = (float)it;
-    out_stats[3] = 0.f;
-  }
+};
+
+template <int kWarps, int S>
+__global__ void __launch_bounds__(kWarps * 32, 1) pose_refine_kernel(
+    PoseArgs a, const float* __restrict__ pose_in, float* __restrict__ out_pose,
+    float* __restrict__ out_stats, int max_iters, float min_rel_decrease) {
+  __shared__ BlockShared<kWarps> sm;
+  Block<kWarps> blk(sm);
+  const PoseProblem<kWarps * 32, S> prob{a};
+  lm_solve(prob, blk, pose_in, out_pose, out_stats, max_iters, min_rel_decrease);
 }
 
 }  // namespace
 }  // namespace sdvo
 
+// warps: 5 (one observation a thread, N <= 160), 1 (five observations a lane,
+// N <= 160) or 8 (four a thread up to N = 1024, recomputed beyond); 0 takes
+// the form that measured fastest for N (5 up to 160 observations, else 8).
 extern "C" int sdvo_pose_refine(const float* pose_in, const float* pts, const float* brg,
                                 const float* vis, float* out_pose, float* out_stats, int N,
-                                int max_iters, float min_rel_decrease, void* stream) {
-  sdvo::PoseArgs a{pts, brg, vis, N};
-  sdvo::pose_refine_kernel<<<1, sdvo::kPoseThreads, 0, (cudaStream_t)stream>>>(
-      a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease);
+                                int max_iters, float min_rel_decrease, int warps, void* stream) {
+  const sdvo::PoseArgs a{pts, brg, vis, N};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (warps == 0) warps = N <= 160 ? 5 : 8;
+  if (warps == 1 && N <= 160)
+    sdvo::pose_refine_kernel<1, 5><<<1, 32, 0, s>>>(a, pose_in, out_pose, out_stats, max_iters,
+                                                    min_rel_decrease);
+  else if (warps == 5 && N <= 160)
+    sdvo::pose_refine_kernel<5, 1><<<1, 160, 0, s>>>(a, pose_in, out_pose, out_stats, max_iters,
+                                                     min_rel_decrease);
+  else if (warps == 8 && N <= 1024)
+    sdvo::pose_refine_kernel<8, 4><<<1, 256, 0, s>>>(a, pose_in, out_pose, out_stats, max_iters,
+                                                     min_rel_decrease);
+  else if (warps == 8)
+    sdvo::pose_refine_kernel<8, 0><<<1, 256, 0, s>>>(a, pose_in, out_pose, out_stats, max_iters,
+                                                     min_rel_decrease);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

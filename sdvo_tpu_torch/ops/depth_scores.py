@@ -9,6 +9,7 @@ zero-mean warped reference patch; ``ok`` is the value-sampler support rule.
 
 from __future__ import annotations
 
+import sys
 from typing import Tuple
 
 import torch
@@ -32,11 +33,10 @@ def depth_scores_plain(windows, cref, offs, patch: int = 7):
     return torch.abs((vals - mean_v) - cref.to(f32)).sum(1), ok
 
 
-def depth_scores(windows, cref, offs, patch: int = 7) -> Tuple[torch.Tensor, torch.Tensor]:
-    """ZSSD scores of every row. Returns (score (R,) float32, ok (R,) bool)."""
-    if not windows.is_cuda:
-        return depth_scores_plain(windows, cref, offs, patch)
-    global launches
+def kernel_launcher(windows, cref, offs, patch: int = 7):
+    """Checks the inputs, allocates the outputs and returns (launch, score
+    (R,), ok (R,) as 0/1 floats): ``launch()`` enqueues the kernel alone, on
+    the current stream, and counts it."""
     dev = windows.device
     R, WH, WW = windows.shape
     P2 = patch * patch
@@ -45,10 +45,17 @@ def depth_scores(windows, cref, offs, patch: int = 7) -> Tuple[torch.Tensor, tor
                        windows=windows, cref=cref, offs=offs)
     score = torch.empty((R,), dtype=torch.float32, device=dev)
     ok = torch.empty((R,), dtype=torch.float32, device=dev)
-    code = build.library().sdvo_depth_scores(
-        windows.data_ptr(), cref.data_ptr(), offs.data_ptr(), score.data_ptr(), ok.data_ptr(),
-        R, WH, WW, patch, build.stream_ptr(dev),
-    )
-    build.check(code, "depth_scores")
-    launches += 1
+    args = (windows.data_ptr(), cref.data_ptr(), offs.data_ptr(), score.data_ptr(), ok.data_ptr(),
+            R, WH, WW, patch)
+    launch = build.launcher(sys.modules[__name__], "depth_scores", "sdvo_depth_scores", args, dev,
+                            (windows, cref, offs))
+    return launch, score, ok
+
+
+def depth_scores(windows, cref, offs, patch: int = 7) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ZSSD scores of every row. Returns (score (R,) float32, ok (R,) bool)."""
+    if not windows.is_cuda:
+        return depth_scores_plain(windows, cref, offs, patch)
+    launch, score, ok = kernel_launcher(windows, cref, offs, patch)
+    launch()
     return score, ok > 0.5

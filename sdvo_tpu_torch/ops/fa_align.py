@@ -10,6 +10,7 @@ freezes the moment it stalls.
 
 from __future__ import annotations
 
+import sys
 from typing import Tuple
 
 import torch
@@ -148,16 +149,12 @@ def fa_align_batch_plain(windows, ref_patch, gx, gy, uv_init, origins, live, pat
     return torch.cat([u, v], 1).to(dtype), rmse[:, 0].to(dtype), conv[:, 0]
 
 
-def fa_align_batch(windows, ref_patch, gx, gy, uv_init, origins, live, patch: int = 5,
-                   max_iters: int = 10, sigma_floor: float = 1.0,
-                   contrast_threshold: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Feature alignment of N features. windows (N, WH, WW) gradient windows,
-    ref_patch/gx/gy (N, P²), uv_init/origins (N, 2), live (N,) bool.
-    Returns (uv (N, 2), rmse (N,), converged (N,) bool)."""
-    if not windows.is_cuda:
-        return fa_align_batch_plain(windows, ref_patch, gx, gy, uv_init, origins, live, patch,
-                                    max_iters, sigma_floor, contrast_threshold)
-    global launches
+def kernel_launcher(windows, ref_patch, gx, gy, uv_init, origins, live, patch: int = 5,
+                    max_iters: int = 10, sigma_floor: float = 1.0,
+                    contrast_threshold: float = 1.0):
+    """Checks the inputs, allocates the output and returns (launch, out
+    (N, 4) = [u, v, rmse, converged]): ``launch()`` enqueues the kernel alone,
+    on the current stream, and counts it."""
     dev = windows.device
     N, WH, WW = windows.shape
     P2 = patch * patch
@@ -172,12 +169,25 @@ def fa_align_batch(windows, ref_patch, gx, gy, uv_init, origins, live, patch: in
         live=livef,
     )
     out = torch.empty((N, 4), dtype=f32, device=dev)
-    code = build.library().sdvo_fa_align(
-        windows.data_ptr(), ref_patch.data_ptr(), gx.data_ptr(), gy.data_ptr(), uv0.data_ptr(),
-        origins.data_ptr(), livef.data_ptr(), out.data_ptr(), N, WH, WW, patch, max_iters,
-        float(sigma_floor), float(contrast_threshold), build.stream_ptr(dev),
-    )
-    build.check(code, "fa_align_batch")
-    launches += 1
+    args = (windows.data_ptr(), ref_patch.data_ptr(), gx.data_ptr(), gy.data_ptr(), uv0.data_ptr(),
+            origins.data_ptr(), livef.data_ptr(), out.data_ptr(), N, WH, WW, patch, max_iters,
+            float(sigma_floor), float(contrast_threshold))
+    launch = build.launcher(sys.modules[__name__], "fa_align_batch", "sdvo_fa_align", args, dev,
+                            (uv0, livef, windows, ref_patch, gx, gy, origins))
+    return launch, out
+
+
+def fa_align_batch(windows, ref_patch, gx, gy, uv_init, origins, live, patch: int = 5,
+                   max_iters: int = 10, sigma_floor: float = 1.0,
+                   contrast_threshold: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Feature alignment of N features. windows (N, WH, WW) gradient windows,
+    ref_patch/gx/gy (N, P²), uv_init/origins (N, 2), live (N,) bool.
+    Returns (uv (N, 2), rmse (N,), converged (N,) bool)."""
+    if not windows.is_cuda:
+        return fa_align_batch_plain(windows, ref_patch, gx, gy, uv_init, origins, live, patch,
+                                    max_iters, sigma_floor, contrast_threshold)
+    launch, out = kernel_launcher(windows, ref_patch, gx, gy, uv_init, origins, live, patch,
+                                  max_iters, sigma_floor, contrast_threshold)
+    launch()
     dtype = uv_init.dtype
     return out[:, 0:2].to(dtype), out[:, 2].to(dtype), out[:, 3] > 0.5

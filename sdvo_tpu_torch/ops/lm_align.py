@@ -17,6 +17,7 @@ Also holds the shared scalar helpers of the LM kernels' plain versions:
 
 from __future__ import annotations
 
+import sys
 from typing import Tuple
 
 import torch
@@ -194,21 +195,27 @@ def lm_align_level_plain(T_init: SE3, windows, ref_patches, J, points_ref, origi
 
 
 # ------------------------------------------------------------------- wrapper
-def lm_align_level(T_init: SE3, windows, ref_patches, J, points_ref, origins, visible,
-                   fx: float, fy: float, cx: float, cy: float, patch: int = 5,
-                   max_iters: int = 12, min_rel_decrease: float = 1e-3
-                   ) -> Tuple[SE3, torch.Tensor, torch.Tensor]:
-    """One LM pyramid level. windows (N, WH, WW), ref_patches (N, P²),
-    J (N, P², 6), points_ref (N, 3), origins (N, 2), visible (N,) bool;
-    level-scaled intrinsics. Returns (T, rmse, iterations)."""
-    if not windows.is_cuda:
-        return lm_align_level_plain(T_init, windows, ref_patches, J, points_ref, origins, visible,
-                                    fx, fy, cx, cy, patch, max_iters, min_rel_decrease)
-    global launches
+def lm_result(out_pose, out_stats, dtype=torch.float32):
+    """What an LM kernel wrote — out_pose (3, 4), out_stats = [chi², n_vis,
+    iterations, 0] — as the wrappers return it: (T, rmse, iterations)."""
+    T = SE3(out_pose[:, :3].to(dtype), out_pose[:, 3].to(dtype))
+    return T, torch.sqrt(out_stats[0] / out_stats[1]).to(dtype), out_stats[2].to(torch.int32)
+
+
+def kernel_launcher(T_init: SE3, windows, ref_patches, J, points_ref, origins, visible,
+                    fx: float, fy: float, cx: float, cy: float, patch: int = 5,
+                    max_iters: int = 12, min_rel_decrease: float = 1e-3, warps: int = 0):
+    """Checks the inputs, allocates the outputs and returns (launch, out_pose
+    (3, 4), out_stats (4,) = [chi², n_vis, iterations, 0]): ``launch()``
+    enqueues the kernel alone, on the current stream, and counts it.
+    ``warps`` picks the block size (32 or 16 warps; 0: the faster one) and is
+    there for measurements only."""
     dev = windows.device
     N, WH, WW = windows.shape
     P2 = patch * patch
     f32 = torch.float32
+    if not (1 <= patch <= 7 and 1 <= N <= 8192):
+        raise ValueError(f"lm_align_level: patch {patch} or N {N} beyond what the kernel takes")
     pose = torch.cat([T_init.rotation.to(f32), T_init.translation.to(f32)[:, None]], 1).contiguous()
     vis = visible.to(f32).contiguous()
     build.check_inputs(
@@ -220,16 +227,27 @@ def lm_align_level(T_init: SE3, windows, ref_patches, J, points_ref, origins, vi
     )
     out_pose = torch.empty((3, 4), dtype=f32, device=dev)
     out_stats = torch.empty((4,), dtype=f32, device=dev)
-    scratch = torch.empty((4 * N * P2 + 2 * N,), dtype=f32, device=dev)
-    code = build.library().sdvo_lm_align_level(
-        pose.data_ptr(), windows.data_ptr(), ref_patches.data_ptr(), J.data_ptr(),
-        points_ref.data_ptr(), origins.data_ptr(), vis.data_ptr(),
-        float(fx), float(fy), float(cx), float(cy),
-        out_pose.data_ptr(), out_stats.data_ptr(), scratch.data_ptr(),
-        N, WH, WW, patch, max_iters, float(min_rel_decrease), build.stream_ptr(dev),
-    )
-    build.check(code, "lm_align_level")
-    launches += 1
-    dtype = T_init.dtype
-    T = SE3(out_pose[:, :3].to(dtype), out_pose[:, 3].to(dtype))
-    return T, torch.sqrt(out_stats[0] / out_stats[1]).to(dtype), out_stats[2].to(torch.int32)
+    args = (pose.data_ptr(), windows.data_ptr(), ref_patches.data_ptr(), J.data_ptr(),
+            points_ref.data_ptr(), origins.data_ptr(), vis.data_ptr(),
+            float(fx), float(fy), float(cx), float(cy), out_pose.data_ptr(), out_stats.data_ptr(),
+            N, WH, WW, patch, max_iters, float(min_rel_decrease), warps)
+    launch = build.launcher(sys.modules[__name__], "lm_align_level", "sdvo_lm_align_level", args, dev,
+                            (pose, vis, windows, ref_patches, J, points_ref, origins))
+    return launch, out_pose, out_stats
+
+
+def lm_align_level(T_init: SE3, windows, ref_patches, J, points_ref, origins, visible,
+                   fx: float, fy: float, cx: float, cy: float, patch: int = 5,
+                   max_iters: int = 12, min_rel_decrease: float = 1e-3
+                   ) -> Tuple[SE3, torch.Tensor, torch.Tensor]:
+    """One LM pyramid level. windows (N, WH, WW), ref_patches (N, P²),
+    J (N, P², 6), points_ref (N, 3), origins (N, 2), visible (N,) bool;
+    level-scaled intrinsics. Returns (T, rmse, iterations)."""
+    if not windows.is_cuda:
+        return lm_align_level_plain(T_init, windows, ref_patches, J, points_ref, origins, visible,
+                                    fx, fy, cx, cy, patch, max_iters, min_rel_decrease)
+    launch, out_pose, out_stats = kernel_launcher(
+        T_init, windows, ref_patches, J, points_ref, origins, visible, fx, fy, cx, cy, patch,
+        max_iters, min_rel_decrease)
+    launch()
+    return lm_result(out_pose, out_stats, T_init.dtype)

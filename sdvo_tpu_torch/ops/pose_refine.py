@@ -10,13 +10,15 @@ left update ``T ← exp(−dx)∘T``, relative-decrease exit.
 
 from __future__ import annotations
 
+import sys
 from typing import Tuple
 
 import torch
 
 from sdvo_tpu_torch.geometry.se3 import SE3, hat
 from sdvo_tpu_torch.ops import build
-from sdvo_tpu_torch.ops.lm_align import chol6_solve, lm_accept, mad_binned, se3_exp_kernel, tukey
+from sdvo_tpu_torch.ops.lm_align import (chol6_solve, lm_accept, lm_result, mad_binned,
+                                         se3_exp_kernel, tukey)
 
 launches = 0
 plain_cuda_calls = 0
@@ -87,16 +89,18 @@ def pose_refine_plain(T_init: SE3, points_w, bearings, valid, max_iters: int = 8
     return SE3(R.to(dtype), t.to(dtype)), torch.sqrt(chi / n_vis).to(dtype), it
 
 
-def pose_refine(T_init: SE3, points_w, bearings, valid, max_iters: int = 8,
-                min_rel_decrease: float = 1e-3) -> Tuple[SE3, torch.Tensor, torch.Tensor]:
-    """Pose-only LM. points_w (N, 3), bearings (N, 3), valid (N,) bool.
-    Returns (T, rmse, iterations)."""
-    if not points_w.is_cuda:
-        return pose_refine_plain(T_init, points_w, bearings, valid, max_iters, min_rel_decrease)
-    global launches
+def kernel_launcher(T_init: SE3, points_w, bearings, valid, max_iters: int = 8,
+                    min_rel_decrease: float = 1e-3, warps: int = 0):
+    """Checks the inputs, allocates the outputs and returns (launch, out_pose
+    (3, 4), out_stats (4,) = [chi², n_vis, iterations, 0]): ``launch()``
+    enqueues the kernel alone, on the current stream, and counts it.
+    ``warps`` picks the block size (5 or 1 warps up to 160 observations, 8 for
+    any number; 0: the fastest for N) and is there for measurements only."""
     dev = points_w.device
     N = points_w.shape[0]
     f32 = torch.float32
+    if N < 1:
+        raise ValueError("pose_refine: the kernel takes at least one observation")
     pose = torch.cat([T_init.rotation.to(f32), T_init.translation.to(f32)[:, None]], 1).contiguous()
     vis = valid.to(f32).contiguous()
     build.check_inputs(
@@ -106,13 +110,20 @@ def pose_refine(T_init: SE3, points_w, bearings, valid, max_iters: int = 8,
     )
     out_pose = torch.empty((3, 4), dtype=f32, device=dev)
     out_stats = torch.empty((4,), dtype=f32, device=dev)
-    code = build.library().sdvo_pose_refine(
-        pose.data_ptr(), points_w.data_ptr(), bearings.data_ptr(), vis.data_ptr(),
-        out_pose.data_ptr(), out_stats.data_ptr(), N, max_iters, float(min_rel_decrease),
-        build.stream_ptr(dev),
-    )
-    build.check(code, "pose_refine")
-    launches += 1
-    dtype = T_init.dtype
-    T = SE3(out_pose[:, :3].to(dtype), out_pose[:, 3].to(dtype))
-    return T, torch.sqrt(out_stats[0] / out_stats[1]).to(dtype), out_stats[2].to(torch.int32)
+    args = (pose.data_ptr(), points_w.data_ptr(), bearings.data_ptr(), vis.data_ptr(),
+            out_pose.data_ptr(), out_stats.data_ptr(), N, max_iters, float(min_rel_decrease), warps)
+    launch = build.launcher(sys.modules[__name__], "pose_refine", "sdvo_pose_refine", args, dev,
+                            (pose, vis, points_w, bearings))
+    return launch, out_pose, out_stats
+
+
+def pose_refine(T_init: SE3, points_w, bearings, valid, max_iters: int = 8,
+                min_rel_decrease: float = 1e-3) -> Tuple[SE3, torch.Tensor, torch.Tensor]:
+    """Pose-only LM. points_w (N, 3), bearings (N, 3), valid (N,) bool.
+    Returns (T, rmse, iterations)."""
+    if not points_w.is_cuda:
+        return pose_refine_plain(T_init, points_w, bearings, valid, max_iters, min_rel_decrease)
+    launch, out_pose, out_stats = kernel_launcher(T_init, points_w, bearings, valid, max_iters,
+                                                  min_rel_decrease)
+    launch()
+    return lm_result(out_pose, out_stats, T_init.dtype)

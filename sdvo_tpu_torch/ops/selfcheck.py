@@ -4,16 +4,21 @@ Builds, from a seed, inputs for K1–K4 shaped as the main path hands them to
 the kernels (a rendered textured plane, features on a grid, windows and
 tables made by the port's own samplers), runs each hand-written kernel and
 its plain PyTorch version on the same tensors, and reports the largest
-disagreement and both times. ``chip_smoke.py`` runs it on the card at the
-main path's sizes; the CPU tests build the same problems at small sizes.
+disagreement and both times. Also the measuring tools: the wrapper's time
+on the host clock (``median_ms``), the kernel's time on the device
+(``device_ms``, against ``empty_launch``) and the least time the card could
+take for the same work (``bound_ms``). ``chip_smoke.py`` runs it on the card
+at the main path's sizes; the CPU tests build the same problems at small
+sizes.
 """
 
 from __future__ import annotations
 
 import statistics
+import subprocess
 import time
 from types import SimpleNamespace
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +28,7 @@ from sdvo_tpu_torch.dataio.synthetic import render_plane, smooth_texture
 from sdvo_tpu_torch.geometry.se3 import SE3
 from sdvo_tpu_torch.image.interp import padded_patch_and_gradients
 from sdvo_tpu_torch.image.pyramid import abs_gradient_saturated_sum, build_pyramid
-from sdvo_tpu_torch.ops import depth_scores, fa_align, lm_align, pose_refine
+from sdvo_tpu_torch.ops import build, depth_scores, fa_align, lm_align, pose_refine
 from sdvo_tpu_torch.ops.window_sampler import sample_windows_grad, window_gather
 
 
@@ -55,7 +60,7 @@ def plane_pair(seed: int, tau, width: int, height: int, tex_size: int = 1024):
 
 
 def lm_problems(device, n: int = 256, width: int = 1241, height: int = 376, levels: int = 4,
-                seed: int = 0):
+                seed: int = 0, patch: int = 5):
     """K1 inputs for every pyramid level: a list of (args, max_iters), args
     in ``lm_align_level`` order after ``T_init``."""
     ref, cur, cam = plane_pair(seed, [0.02, -0.01, 0.015, 0.002, -0.003, 0.004], width, height,
@@ -76,7 +81,7 @@ def lm_problems(device, n: int = 256, width: int = 1241, height: int = 376, leve
         fx, fy, cx, cy = cam.fx * s, cam.fy * s, cam.cx * s, cam.cy * s
         uv_l = torch.from_numpy(uv) * s
         win_r, org_r, ok_r = window_gather(pr.images[lv], uv_l, 16)
-        patches, gx, gy, ok_s = sample_windows_grad(win_r, uv_l - org_r, 5)
+        patches, gx, gy, ok_s = sample_windows_grad(win_r, uv_l - org_r, patch)
         iz = 1.0 / z
         iz2 = iz * iz
         zero = torch.zeros_like(x)
@@ -120,7 +125,8 @@ def pose_problem(device, n: int = 150, outliers: int = 10, seed: int = 2):
     brg[:outliers] += rng.normal(0, 0.05, size=(outliers, 3))
     brg /= np.linalg.norm(brg, axis=-1, keepdims=True)
     valid = np.ones(n, bool)
-    valid[-3:] = False
+    if n > 3:
+        valid[-3:] = False
     args = [torch.from_numpy(a).to(device) for a in (pts.astype(np.float32), brg.astype(np.float32), valid)]
     return args, T_true
 
@@ -203,24 +209,182 @@ def median_ms(fn: Callable, runs: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_ms(launch: Callable, runs: int = 100, warmup: int = 5) -> float:
+    """Device-side time of one ``launch()``: ``runs`` back-to-back launches
+    captured in one CUDA graph (so that no host gap sits between them),
+    replayed between two CUDA events, ``elapsed_time`` over the count.
+    ``launch`` may only enqueue kernels (no allocation, no host sync)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(warmup):
+            launch()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(runs):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def card_line() -> str:
+    """The card's name and power limit, as every measurement is labelled."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def empty_launch(device) -> Callable:
+    """A launch of the kernel that does nothing (``csrc/empty.cu``): its
+    ``device_ms`` is the floor under any one-launch kernel on the card."""
+    fn = build.library().sdvo_empty_launch
+    return lambda: build.check(fn(build.stream_ptr(device)), "empty_launch")
+
+
+# ------------------------------------------------------------------- bounds
+# Published peaks of one H100 SXM: device memory rate and float32 rate
+# outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# Operations the LM kernels' function needs per residual (float32 adds,
+# multiplies and compares, a fused multiply-add as two):
+#   robust scale: min/max/count 3, four histogram stages of 16 compares and
+#   16 adds, deviation and its max 3, Tukey weight and chi² 8;
+#   H/g: 6 for J·w, 2·27 for the sums, 6 for the weight.
+_SCALE_FLOPS = 3 + 4 * 32 + 3 + 8
+_HG_FLOPS = 6 + 2 * 27 + 6
+_BILINEAR_FLOPS = 12  # floor, two fractions, three lerps
+_PROJECT_FLOPS = 24  # rotate, translate, divide, scale: once a feature
+
+
+class Bound(NamedTuple):
+    ms: float  # the larger of bytes / peak rate and operations / peak rate
+    by: str  # "bytes" or "operations"
+    bytes: int
+    flops: int
+
+
+def bound_ms(name: str, shapes: Dict[str, int], iterations: int = None) -> Bound:
+    """The least time one H100 could take for one call of kernel ``name`` at
+    ``shapes``: every input read once and every output written once at
+    3.35 TB/s, or its float32 operations at 67 TFLOP/s, whichever is larger.
+    ``shapes``: ``N``, ``WH``, ``WW``, ``P2`` (rows, window height and width,
+    patch area; K3 takes ``N`` alone). ``iterations`` are the LM iterations
+    the data needed (K1 and K3 report them; K2 is counted at its fixed 10)."""
+    base = name.split("[")[0]
+    N = shapes["N"]
+    if base == "pose_refine":
+        nbytes = 4 * (N * 7 + 12 + 12 + 4)
+        per_eval = N * (_PROJECT_FLOPS + 3 * (1 + _SCALE_FLOPS))
+        per_iter = N * 3 * (30 + _HG_FLOPS)  # 30: the Jacobian row (I − ffᵀ)/|p|·[I | −p̂]
+        flops = (iterations + 1) * per_eval + iterations * per_iter
+    else:
+        WH, WW, P2 = shapes["WH"], shapes["WW"], shapes["P2"]
+        if base == "lm_align_level":
+            nbytes = 4 * (N * (WH * WW + P2 * 7 + 6) + 12 + 12 + 4)
+            per_eval = N * (_PROJECT_FLOPS + P2 * (_BILINEAR_FLOPS + 1 + _SCALE_FLOPS))
+            flops = (iterations + 1) * per_eval + iterations * N * P2 * _HG_FLOPS
+        elif base == "fa_align_batch":
+            nbytes = 4 * N * (WH * WW + 3 * P2 + 5 + 4)
+            # per pixel and iteration: sample, residual, two 12-step bisections
+            # with min/max, the 3-parameter H/g (9 sums), chi²
+            flops = N * P2 * (iterations or 10) * (_BILINEAR_FLOPS + 2 + 2 * 12 * 2 + 6 + 2 * 9 + 8)
+        elif base == "depth_scores":
+            nbytes = 4 * N * (WH * WW + P2 + 2 + 2)
+            flops = N * P2 * (_BILINEAR_FLOPS + 1 + 2 + 3)  # sample, mean, centre, squared difference
+        else:
+            raise KeyError(name)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_F32_FLOPS * 1e3
+    return Bound(max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations",
+                 nbytes, flops)
+
+
+# launches of each kernel in one frame of the main path (K1: one a level)
+LAUNCHES_PER_FRAME = {"lm_align_level": 4, "fa_align_batch": 1, "pose_refine": 1,
+                      "depth_scores": 1}
+
+_OPS = {  # base name: (module, wrapper, plain version, outputs compared)
+    "lm_align_level": (lm_align, lm_align.lm_align_level, lm_align.lm_align_level_plain, 2),
+    "fa_align_batch": (fa_align, fa_align.fa_align_batch, fa_align.fa_align_batch_plain, None),
+    "pose_refine": (pose_refine, pose_refine.pose_refine, pose_refine.pose_refine_plain, 2),
+    "depth_scores": (depth_scores, depth_scores.depth_scores, depth_scores.depth_scores_plain, None),
+}
+
+
+def kernel_problems(device, sizes: Dict[str, int] = None) -> List[Tuple[str, tuple, dict]]:
+    """(name, arguments, keyword arguments) of each K1 level, K2, K3 and K4,
+    for the wrapper, its plain version and its ``kernel_launcher`` alike."""
+    sizes = sizes or {}
+    T0 = SE3.identity(device=device)
+    problems = []
+    for lv, (args, its) in enumerate(lm_problems(device, n=sizes.get("lm", 256))):
+        problems.append((f"lm_align_level[L{lv}]", (T0, *args),
+                         dict(max_iters=its, min_rel_decrease=2e-3)))
+    problems.append(("fa_align_batch", tuple(fa_problem(device, n=sizes.get("fa", 150))), {}))
+    problems.append(("pose_refine", (T0, *pose_problem(device, n=sizes.get("pose", 150))[0]), {}))
+    problems.append(("depth_scores",
+                     tuple(depth_problem(device, filters=sizes.get("depth_filters", 512))), {}))
+    return problems
+
+
+def extra_problems(device) -> List[Tuple[str, tuple, dict]]:
+    """K1 and K3 problems at the sizes their thread mappings make
+    interesting: a feature count that is no multiple of a warp, more
+    residuals than a block keeps in registers, patch 4, one observation,
+    more observations than any register tier holds, and nothing visible
+    (which must return the initial pose)."""
+    T0 = SE3.identity(device=device)
+    problems = []
+    for tag, n, patch, blind in (("N37", 37, 5, False), ("N300", 300, 5, False),
+                                 ("patch4", 64, 4, False), ("N37-blind", 37, 5, True)):
+        args, _ = lm_problems(device, n=n, patch=patch)[0]
+        if blind:
+            args[5] = torch.zeros_like(args[5])
+        problems.append((f"lm_align_level[{tag}]", (T0, *args),
+                         dict(patch=patch, max_iters=10, min_rel_decrease=2e-3)))
+    for tag, n, blind in (("N1", 1, False), ("N33", 33, False), ("N500", 500, False),
+                          ("N1500", 1500, False), ("N33-blind", 33, True)):
+        args, _ = pose_problem(device, n=n, outliers=n // 10)
+        if blind:
+            args[2] = torch.zeros_like(args[2])
+        problems.append((f"pose_refine[{tag}]", (T0, *args), {}))
+    return problems
+
+
+def problem_shapes(name: str, args: tuple) -> Dict[str, int]:
+    """The ``shapes`` of ``bound_ms`` for a problem of ``kernel_problems``."""
+    base = name.split("[")[0]
+    if base == "pose_refine":
+        return {"N": args[1].shape[0]}
+    windows, table = (args[1], args[2]) if base == "lm_align_level" else (args[0], args[1])
+    return {"N": windows.shape[0], "WH": windows.shape[1], "WW": windows.shape[2],
+            "P2": table.shape[1]}
+
+
+def case_calls(name: str, args: tuple, kw: dict) -> Tuple[Callable, Callable]:
+    """(kernel call, plain call) of one problem: the wrapper and its plain
+    version on the same arguments, cut to the outputs that are compared."""
+    _, wrapper, plain, n_out = _OPS[name.split("[")[0]]
+    return (lambda: wrapper(*args, **kw)[:n_out]), (lambda: plain(*args, **kw)[:n_out])
+
+
 def kernel_cases(device, sizes: Dict[str, int] = None) -> List[Tuple[str, Callable, Callable]]:
     """(name, kernel call, plain call) for each K1 level, K2, K3 and K4."""
-    sizes = sizes or {}
-    cases = []
-    for lv, (args, its) in enumerate(lm_problems(device, n=sizes.get("lm", 256))):
-        T0 = SE3.identity(device=device)
-        kw = dict(max_iters=its, min_rel_decrease=2e-3)
-        cases.append((f"lm_align_level[L{lv}]",
-                      lambda a=args, kw=kw: lm_align.lm_align_level(T0, *a, **kw)[:2],
-                      lambda a=args, kw=kw: lm_align.lm_align_level_plain(T0, *a, **kw)[:2]))
-    fa_args = fa_problem(device, n=sizes.get("fa", 150))
-    cases.append(("fa_align_batch", lambda: fa_align.fa_align_batch(*fa_args),
-                  lambda: fa_align.fa_align_batch_plain(*fa_args)))
-    p_args, _ = pose_problem(device, n=sizes.get("pose", 150))
-    T0 = SE3.identity(device=device)
-    cases.append(("pose_refine", lambda: pose_refine.pose_refine(T0, *p_args)[:2],
-                  lambda: pose_refine.pose_refine_plain(T0, *p_args)[:2]))
-    d_args = depth_problem(device, filters=sizes.get("depth_filters", 512))
-    cases.append(("depth_scores", lambda: depth_scores.depth_scores(*d_args),
-                  lambda: depth_scores.depth_scores_plain(*d_args)))
-    return cases
+    return [(name, *case_calls(name, args, kw)) for name, args, kw in kernel_problems(device, sizes)]
+
+
+def kernel_launcher(name: str, args: tuple, kw: dict, **extra):
+    """(launch, output tensors) of a problem of ``kernel_problems``:
+    ``launch()`` enqueues the kernel alone (card only). K1 and K3 give
+    (out_pose (3, 4), out_stats = [chi², n_vis, iterations, 0])."""
+    launch, *outs = _OPS[name.split("[")[0]][0].kernel_launcher(*args, **kw, **extra)
+    return launch, tuple(outs)

@@ -34,6 +34,7 @@ from sdvo_tpu_torch.ba.bundle_adjustment import BAObservations, BASettings, loca
 from sdvo_tpu_torch.config import Config
 from sdvo_tpu_torch.dataio.evaluate import write_kitti_poses
 from sdvo_tpu_torch.depth.filter import FilterBank, init_filters, update_filters
+from sdvo_tpu_torch.device import resolve_device
 from sdvo_tpu_torch.features.detection import FeatureSelection, detect_gradient_by_value
 from sdvo_tpu_torch.geometry.camera import PinholeCamera
 from sdvo_tpu_torch.geometry.essential import topk_stable
@@ -511,13 +512,16 @@ class DeviceSystem:
     ``ransac_uniforms`` (S, N), when given, replace the RANSAC draws of the
     first bootstrap attempt (N = the first frame's detections); later draws
     come from a ``torch.Generator`` seeded with ``seed``.
+
+    ``device`` defaults to the CUDA card and raises where there is none;
+    ``device="cpu"`` asks for the CPU (the kernels' plain versions).
     """
 
     def __init__(self, config: Config, camera: Optional[PinholeCamera] = None, seed: int = 0,
                  supersteps_per_chunk: int = 8, max_promote: int = 64, ba_points: int = 1024,
-                 ba_iterations: int = 2, device="cpu", ransac_uniforms: Optional[np.ndarray] = None):
+                 ba_iterations: int = 2, device=None, ransac_uniforms: Optional[np.ndarray] = None):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         cfg_a = config.algorithm
         cfg_i = config.initialization
         if config.compute_dtype != "float32":

@@ -64,7 +64,7 @@ def runs():
     j_boot = jax.device_get(jds.state)
 
     tds = DeviceSystem(load_config(overrides=OVERRIDES), camera=PinholeCamera.create(**CAM),
-                       ransac_uniforms=uniforms, **KW)
+                       ransac_uniforms=uniforms, device="cpu", **KW)
     tds.add_image(frames[0], 0.0)
     tds.add_image(frames[1], 1.0)
     t_boot = to_numpy(tds.state)
@@ -135,7 +135,7 @@ def test_two_supersteps_track_like_reference(runs):
 def test_state_round_trip(runs):
     """``vo_state_from_numpy`` ∘ ``to_numpy`` keeps every field and dtype."""
     _, tds, _, _, _ = runs
-    back = vo_state_from_numpy(to_numpy(tds.state))
+    back = vo_state_from_numpy(to_numpy(tds.state), device="cpu")
     for a, b in zip(jax.tree_util.tree_leaves(to_numpy(back)), jax.tree_util.tree_leaves(to_numpy(tds.state))):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
@@ -197,7 +197,7 @@ def test_superstep_matches_pallas_path(runs, tmp_path):
         j_outs.append(out)
     j_out = type(j_outs[0])(*[np.stack(x) for x in zip(*j_outs)])
     vo = DeviceVO(tds.camera, tds.scfg)
-    t_state, t_out = vo.superstep(vo_state_from_numpy(j_boot), torch.from_numpy(imgs))
+    t_state, t_out = vo.superstep(vo_state_from_numpy(j_boot, device="cpu"), torch.from_numpy(imgs))
     t = to_numpy(t_state)
     np.testing.assert_array_equal(t_out.ok.numpy(), j_out.ok)
     np.testing.assert_array_equal(t_out.n_matches.numpy(), j_out.n_matches)

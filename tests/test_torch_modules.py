@@ -486,7 +486,7 @@ def test_reproject_device_matches_jax():
     mode. Slots, flags and counters exact; uv 1e-3 px; rmse 1e-3 relative."""
     m, T, grad = _map_problem()
     jm = JDeviceMap(*[jnp.asarray(x) for x in m])
-    tm = vo_state_from_numpy(m)
+    tm = vo_state_from_numpy(m, device="cpu")
     kw = dict(cell_size=24, max_matches=32, max_error=50.0, patch_size=5)
     jm2, jmat = j_reproject(jm, jse3.SE3(jnp.asarray(T[:3, :3]), jnp.asarray(T[:3, 3])),
                             jnp.asarray(grad), jnp.float32(320.0), jnp.float32(320.0),

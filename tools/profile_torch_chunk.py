@@ -28,6 +28,7 @@ from sdvo_tpu_torch.config import load_config  # noqa: E402
 from sdvo_tpu_torch.dataio.synthetic import render_bench_sequence  # noqa: E402
 from sdvo_tpu_torch.pipeline import device_system as D  # noqa: E402
 from sdvo_tpu_torch.align import image_alignment  # noqa: E402
+from sdvo_tpu_torch.ops import selfcheck  # noqa: E402
 
 SUPERSTEPS = 8
 PER = 3
@@ -58,7 +59,7 @@ def main() -> int:
     frames, _ = render_bench_sequence(np.random.default_rng(0), 2 + 2 * chunk)
     config = load_config(overrides={
         "initialization": {"disparity_threshold": 3, "threshold_gradient_magnitude": 20}})
-    ds = D.DeviceSystem(config, supersteps_per_chunk=SUPERSTEPS, device="cuda")
+    ds = D.DeviceSystem(config, supersteps_per_chunk=SUPERSTEPS)
     for i in range(2 + chunk):  # bootstrap + warm-up chunk
         ds.add_image(frames[i].astype(np.float32), float(i))
     torch.cuda.synchronize()
@@ -79,7 +80,7 @@ def main() -> int:
     kernels = [e for e in events if e.device_type == cuda and e.key not in STAGES
                and e.key != "Activity Buffer Request"]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    card = torch.cuda.get_device_name(0)
+    card = selfcheck.card_line()
     print(f"chunk of {chunk} frames on {card} (under the profiler): wall {wall_ms:.1f} ms "
           f"({wall_ms / chunk:.2f} ms/frame), kernel time {busy_ms:.1f} ms, device idle share "
           f"{1 - busy_ms / wall_ms:.3f}, {len(kernels) / chunk:.0f} device events/frame")
