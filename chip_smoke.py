@@ -8,8 +8,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 3. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (K1: 256 features at all four levels; K2: 150; K3: 150;
    K4: 8192 rows) and times both: the wrapper on the host clock, the kernel
-   alone on the device (beside an empty kernel), and the least time the card
-   could take for the same work (``selfcheck.bound_ms``).
+   alone on the device with its inputs warm in the L2 cache (beside an empty
+   kernel), the least time the card could take for the same work
+   (``selfcheck.bound_ms``), and, where that bound is one of bytes above the
+   empty kernel's time, the kernel's time with its inputs in device memory.
 4. Drives ``DeviceSystem`` (on its default device, the card) — bootstrap plus
    chunks of 8 supersteps — on the
    rendered 1241×376 scene of ``bench.py`` with its overrides, asserts its
@@ -48,7 +50,9 @@ def _require(cond: bool, message: str):
 def check_kernels(device, failures):
     """Each kernel against its plain version at the main path's shapes, with
     its times: the wrapper's on the host clock (``ms``), the kernel's on the
-    device (``device_ms``), the plain version's, and the card's bound."""
+    device (``device_ms``, inputs warm in L2; ``device_ms_cold``, inputs in
+    device memory, where the bound is one of bytes above the empty kernel's
+    time), the plain version's, and the card's bound."""
     from sdvo_tpu_torch.ops import selfcheck
 
     empty_ms = selfcheck.device_ms(selfcheck.empty_launch(device))
@@ -70,6 +74,9 @@ def check_kernels(device, failures):
         if base in ("lm_align_level", "pose_refine"):
             iterations = int(outs[1][2])  # what the kernel reports of this problem
         bound = selfcheck.bound_ms(name, selfcheck.problem_shapes(name, args), iterations)
+        cold_ms = None
+        if bound.by == "bytes" and bound.ms > empty_ms:
+            cold_ms = selfcheck.device_ms(selfcheck.cold_launches(name, args, kw, bound.bytes))
         detail = ""
         if base == "fa_align_batch":
             uv_d = (got[0] - want[0]).abs().max(1).values
@@ -77,14 +84,17 @@ def check_kernels(device, failures):
             detail = (f" ({flipped} of {uv_d.numel()} features one LM step apart, at most "
                       f"{selfcheck.FA_STEP_PX} px and {100 * selfcheck.FA_FLIP_SHARE:g} % allowed)")
         its = "" if iterations is None else f", {iterations} iterations"
+        cold = "" if cold_ms is None else f" and {cold_ms:.5f} ms from device memory"
         print(f"kernel {name}: max_abs_err {err:.3e} (tolerance {selfcheck.TOLERANCE[base]:g}"
-              f"{detail}){its}, wrapper {ms:.4f} ms, device {dev_ms:.5f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound.ms:.3e} ms ({bound.by}: {bound.bytes} bytes, {bound.flops} operations)",
+              f"{detail}){its}, wrapper {ms:.4f} ms, device {dev_ms:.5f} ms warm in L2{cold}, "
+              f"plain {plain_ms:.4f} ms, bound {bound.ms:.3e} ms ({bound.by}: {bound.bytes} bytes, "
+              f"{bound.flops} operations)",
               flush=True)
         if not ok:
             failures.append(f"{name} disagrees with its plain version: {err}")
         r = rows.setdefault(base, {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-                                   "bound_ms": 0.0, "t_bytes": 0.0, "t_flops": 0.0})
+                                   "bound_ms": 0.0, "t_bytes": 0.0, "t_flops": 0.0,
+                                   "device_ms_cold": cold_ms})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         for key, value in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
                            ("bound_ms", bound.ms),  # K1: summed over the four levels of one frame
@@ -160,7 +170,7 @@ def run_main_path(device, card: str):
     fps = len(timed) * chunk / sum(timed)
     print(f"frames/s {fps:.2f} ({card}; DeviceSystem steady state, {len(timed)} chunks of "
           f"{chunk} frames after one warm-up chunk)", flush=True)
-    return launches
+    return launches, len(steady)
 
 
 def main() -> int:
@@ -184,7 +194,7 @@ def main() -> int:
 
     failures = []
     rows = check_kernels(device, failures)
-    launches = run_main_path(device, card)
+    launches, steady_frames = run_main_path(device, card)
     _require(not failures, "; ".join(failures))
 
     kernels = []
@@ -194,8 +204,8 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
-                        "device_ms": r["device_ms"],
-                        "launches_per_frame": selfcheck.LAUNCHES_PER_FRAME[name]})
+                        "device_ms": r["device_ms"], "device_ms_cold": r["device_ms_cold"],
+                        "launches_per_frame": launches[name] / steady_frames})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

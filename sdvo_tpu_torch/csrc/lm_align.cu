@@ -13,8 +13,8 @@
 // seven reductions of the candidate's robust scale, each depending on the one
 // before, so the whole level is one thread block on one SM of 132 and its
 // time is the chain's latency plus the instructions each link costs. Of an
-// iteration at 256 features (~46,000 cycles; tools/tune_lm_kernels.py
-// --profile) the four median stages are ~37 % (counting into bins 26,
+// iteration at 256 features (~46,000 cycles by thread 0's clock64(); PERF.md
+// has the table) the four median stages are ~37 % (counting into bins 26,
 // deciding 11), sampling the windows with the count/min/max that waits on it
 // ~25 % (scattered taps: a warp's load touches ~7 window rows, 7 cache
 // lines), H/g ~20 % (J at a 24-byte lane stride: 18 cache lines a warp and
@@ -22,8 +22,8 @@
 //
 // What the design does about it (the shared parts are in lm_block.cuh):
 //  * One residual per thread-slot: residual e = feature·P² + pixel belongs to
-//    thread e mod T, slot e / T, for the whole solve (T = 1024: 16 warps of
-//    14 slots measured ~9 % slower). With N·P² <= 7168 (the main path has
+//    thread e mod T, slot e / T, for the whole solve (T = 1024; 512 threads
+//    of 14 slots measured ~9 % slower). With N·P² <= 7168 (the main path has
 //    256·25 = 6400) a thread keeps its residuals of the accepted and of the
 //    candidate pose in registers, with each slot's place and reference pixel;
 //    accepting a step is a register move. There is no scratch buffer in
@@ -43,9 +43,12 @@
 //    the Pallas kernel.
 //  * Larger problems (N·P² > 7168) take the same code with the residuals
 //    recomputed from the pose in each pass instead of kept (Resid<0>).
-//  * Not built: the level on a thread block cluster with the windows in
-//    distributed shared memory. Sampling is a quarter of an iteration, and
-//    each of the eight reductions would gain a cluster barrier.
+//  * Not a thread block cluster with the windows in distributed shared
+//    memory: on an H100 a reduction round across a cluster of four blocks
+//    measured 2,242 cycles against 677 in one block of 1024 threads (the two
+//    barriers alone 1,756 against 282; tools/cluster_sync_cost.cu). With
+//    eight rounds an iteration that adds ~12,500 cycles to 46,000, and
+//    sampling, which the cluster would speed up, is ~11,500 of them.
 #include "lm_block.cuh"
 
 namespace sdvo {
@@ -276,35 +279,29 @@ int lm_launch_tier(const LmArgs& a, const float* pose_in, float* out_pose, float
   return (int)cudaGetLastError();
 }
 
-template <int kWarps>
+constexpr int kLmWarps = 32;
+
 int lm_launch(const LmArgs& a, const float* pose_in, float* out_pose, float* out_stats,
               int max_iters, float min_rel_decrease, cudaStream_t stream) {
   if (a.N > kLmMaxFeatures) return (int)cudaErrorInvalidValue;
   if ((long long)a.N * a.patch * a.patch <= kLmSlotsTotal && a.N <= kLmMaxFeaturesKept)
-    return lm_launch_tier<kWarps, kLmSlotsTotal / (kWarps * 32)>(
+    return lm_launch_tier<kLmWarps, kLmSlotsTotal / (kLmWarps * 32)>(
         a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease, stream);
-  return lm_launch_tier<kWarps, 0>(a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease,
-                                   stream);
+  return lm_launch_tier<kLmWarps, 0>(a, pose_in, out_pose, out_stats, max_iters,
+                                     min_rel_decrease, stream);
 }
 
 }  // namespace
 }  // namespace sdvo
 
-// warps: 32 or 16 in the block (7 or 14 register slots a thread); 0 takes the
-// form that measured faster at the main path's 256 features, 32.
 extern "C" int sdvo_lm_align_level(const float* pose_in, const float* windows, const float* patches,
                                    const float* J, const float* pts, const float* org,
                                    const float* vis, float fx, float fy, float cx, float cy,
                                    float* out_pose, float* out_stats, int N, int WH, int WW,
-                                   int patch, int max_iters, float min_rel_decrease, int warps,
+                                   int patch, int max_iters, float min_rel_decrease,
                                    void* stream) {
   const sdvo::LmArgs a{windows, patches, J,  pts, org, vis, nullptr, nullptr,
                        fx,      fy,      cx, cy,  N,   WH,  WW,      patch};
-  if (warps == 16)
-    return sdvo::lm_launch<16>(a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease,
-                               (cudaStream_t)stream);
-  if (warps == 0 || warps == 32)
-    return sdvo::lm_launch<32>(a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease,
-                               (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+  return sdvo::lm_launch(a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease,
+                         (cudaStream_t)stream);
 }

@@ -8,8 +8,9 @@
 // — partials to shared memory, a barrier, warp 0 combining, a barrier — costs
 // about 1,000 cycles with 32 warps, whatever is reduced, and a median stage
 // about 4,000: 2,800 to count seven values a thread into bins (the SM's instruction
-// slots: 32 warps of ~45 instructions a value) and 1,200 to decide
-// (tools/tune_lm_kernels.py --profile). The design:
+// slots: 32 warps of ~45 instructions a value) and 1,200 to decide (thread
+// 0's clock64() around each section of a solve; PERF.md has the table). The
+// design:
 //
 //  * A thread owns its residuals for a whole evaluation (in registers where
 //    the problem fits, see each kernel's Resid); only reductions cross threads.
@@ -38,11 +39,7 @@
 //    compare against each threshold would give them. (Finding the bin by
 //    arithmetic instead, with a check against the neighbouring thresholds,
 //    measured half as fast: it is more instructions.)
-//  * With one warp (kWarps == 1) the same code runs with `__syncwarp` for
-//    every barrier.
 #pragma once
-
-#include <cstdio>
 
 #include "common.cuh"
 
@@ -114,47 +111,6 @@ constexpr int kHgValues = 27;    // 21 of H (lower triangle) + 6 of g
 constexpr int kChunk = 7;        // values a lane counts into one packed histogram (4 bits a bin)
 constexpr int kStepWords = 16;   // what warp 0 publishes of an LM step
 
-// Where the cycles of a solve go, by section, as thread 0 sees them: built
-// only with -DSDVO_LM_PROFILE (tools/tune_lm_kernels.py --profile), when
-// every launch prints one line; otherwise every call here is empty.
-enum Section { kNormalEq, kSumHg, kStep, kEvaluate, kCountMinMax, kBinCount, kMedianDecide, kChi,
-               kAccept, kSections };
-struct LmProfile {
-#ifdef SDVO_LM_PROFILE
-  long long last, cycles[kSections];
-  unsigned long long ns0;
-  __device__ static unsigned long long now_ns() {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    return t;
-  }
-  __device__ void start() {
-    for (int i = 0; i < kSections; ++i) cycles[i] = 0;
-    ns0 = now_ns();
-    last = clock64();
-  }
-  __device__ void mark(Section s) {
-    const long long t = clock64();
-    cycles[s] += t - last;
-    last = t;
-  }
-  __device__ void report(int iterations) const {
-    if (threadIdx.x != 0) return;
-    long long all = 0;
-    for (int i = 0; i < kSections; ++i) all += cycles[i];
-    printf("lm profile: %d threads, %d iterations, %lld cycles in %llu ns | normal_eq %lld sum_hg "
-           "%lld step %lld evaluate %lld count_min_max %lld bin_count %lld median_decide %lld chi "
-           "%lld accept %lld\n",
-           (int)blockDim.x, iterations, all, now_ns() - ns0, cycles[0], cycles[1], cycles[2],
-           cycles[3], cycles[4], cycles[5], cycles[6], cycles[7], cycles[8]);
-  }
-#else
-  __device__ void start() {}
-  __device__ void mark(Section) {}
-  __device__ void report(int) const {}
-#endif
-};
-
 template <int kWarps>
 struct BlockShared {
   uint32_t part[kWarps * kPartStride];
@@ -183,17 +139,11 @@ template <int kWarps>
 struct Block {
   BlockShared<kWarps>& sm;
   const int lane, warp;
-  LmProfile prof;
 
   __device__ explicit Block(BlockShared<kWarps>& s)
       : sm(s), lane(threadIdx.x & 31), warp(threadIdx.x >> 5) {}
 
-  __device__ void sync() const {
-    if (kWarps == 1)
-      __syncwarp();
-    else
-      __syncthreads();
-  }
+  __device__ void sync() const { __syncthreads(); }
 
   // Every warp has left K partials at part[warp][0..K). After the barrier
   // warp 0 takes them one warp a lane and combines them across its lanes;
@@ -431,9 +381,7 @@ __device__ float block_bin_median(Block<kWarps>& blk, const Vals& vals, bool dev
     for_each_chunk(vals, [&](const auto& ch) {
       bin_count += flush_packed(count_bins(ch, thr, dev, center), blk.lane);
     });
-    blk.prof.mark(kBinCount);
     blk.median_stage(bin_count, half_n, lo, hi, med);  // its barriers also fence thr
-    blk.prof.mark(kMedianDecide);
   }
   return med;
 }
@@ -453,7 +401,6 @@ __device__ void robust_scale(Block<kWarps>& blk, const Vals& vals, float& c, flo
     hi = fmaxf(hi, vis ? x : -kBig);
   });
   blk.count_min_max(n, lo, hi);
-  blk.prof.mark(kCountMinMax);
   n_vis = fmaxf((float)n, 1.f);
   const float half_n = 0.5f * n_vis;
   const float med = block_bin_median(blk, vals, false, 0.f, lo, hi, half_n);
@@ -470,7 +417,6 @@ __device__ void robust_scale(Block<kWarps>& blk, const Vals& vals, float& c, flo
     ch += vis ? tukey_weight(x, c) * x * x : 0.f;
   });
   chi = blk.sum(ch);
-  blk.prof.mark(kChi);
 }
 
 // The LM loop. Problem gives:
@@ -495,9 +441,7 @@ __device__ void lm_solve(const Problem& prob, Block<kWarps>& blk,
     t[i] = pose_in[4 * i + 3];
   }
   typename Problem::Resid acc, cand;
-  blk.prof.start();
   prob.evaluate(R, t, acc);
-  blk.prof.mark(kEvaluate);
   float c, chi, n_vis;
   robust_scale(blk, acc, c, chi, n_vis);
 
@@ -509,9 +453,7 @@ __device__ void lm_solve(const Problem& prob, Block<kWarps>& blk,
 #pragma unroll
     for (int i = 0; i < 32; ++i) hg[i] = 0.f;
     prob.normal_equations(acc, R, t, c, hg);
-    blk.prof.mark(kNormalEq);
     blk.sum_hg(hg);
-    blk.prof.mark(kSumHg);
     // warp 0 solves for the step and publishes the candidate pose
     if (blk.warp == 0) {
       float H[21], g[6];
@@ -568,9 +510,7 @@ __device__ void lm_solve(const Problem& prob, Block<kWarps>& blk,
     for (int i = 0; i < 3; ++i) t_new[i] = blk.sm.step[9 + i];
     const float pred = blk.sm.step[12], step2 = blk.sm.step[13], lam_eff = blk.sm.step[14];
     const bool okc = blk.sm.step[15] > 0.5f;
-    blk.prof.mark(kStep);
     prob.evaluate(R_new, t_new, cand);
-    blk.prof.mark(kEvaluate);
     float c_n, chi_n, n_vis_n;
     robust_scale(blk, cand, c_n, chi_n, n_vis_n);
 
@@ -596,9 +536,7 @@ __device__ void lm_solve(const Problem& prob, Block<kWarps>& blk,
     lam = lam_next;
     nu = nu_next;
     ++it;
-    blk.prof.mark(kAccept);
   }
-  blk.prof.report(it);
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int i = 0; i < 3; ++i) {

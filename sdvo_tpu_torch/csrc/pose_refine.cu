@@ -16,7 +16,7 @@
 //  * The block is sized to the problem. Up to 160 observations run as five
 //    warps, one observation (three residuals) a thread, so that a pass over
 //    the residuals is a handful of instructions and the chain is the
-//    reductions alone; the same in ONE warp at five observations a lane
+//    reductions alone; the same in one warp at five observations a lane
 //    (no block barrier at all, `__syncwarp` only) measured twice as slow,
 //    because one warp runs its 15 values' passes one instruction at a
 //    time. Larger problems take eight warps, four observations a thread.
@@ -160,28 +160,21 @@ __global__ void __launch_bounds__(kWarps * 32, 1) pose_refine_kernel(
 }  // namespace
 }  // namespace sdvo
 
-// warps: 5 (one observation a thread, N <= 160), 1 (five observations a lane,
-// N <= 160) or 8 (four a thread up to N = 1024, recomputed beyond); 0 takes
-// the form that measured fastest for N (5 up to 160 observations, else 8).
+// Five warps (one observation a thread) up to 160 observations, eight (four
+// a thread) up to 1024, eight recomputing beyond.
 extern "C" int sdvo_pose_refine(const float* pose_in, const float* pts, const float* brg,
                                 const float* vis, float* out_pose, float* out_stats, int N,
-                                int max_iters, float min_rel_decrease, int warps, void* stream) {
+                                int max_iters, float min_rel_decrease, void* stream) {
   const sdvo::PoseArgs a{pts, brg, vis, N};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (warps == 0) warps = N <= 160 ? 5 : 8;
-  if (warps == 1 && N <= 160)
-    sdvo::pose_refine_kernel<1, 5><<<1, 32, 0, s>>>(a, pose_in, out_pose, out_stats, max_iters,
-                                                    min_rel_decrease);
-  else if (warps == 5 && N <= 160)
+  if (N <= 160)
     sdvo::pose_refine_kernel<5, 1><<<1, 160, 0, s>>>(a, pose_in, out_pose, out_stats, max_iters,
                                                      min_rel_decrease);
-  else if (warps == 8 && N <= 1024)
+  else if (N <= 1024)
     sdvo::pose_refine_kernel<8, 4><<<1, 256, 0, s>>>(a, pose_in, out_pose, out_stats, max_iters,
                                                      min_rel_decrease);
-  else if (warps == 8)
+  else
     sdvo::pose_refine_kernel<8, 0><<<1, 256, 0, s>>>(a, pose_in, out_pose, out_stats, max_iters,
                                                      min_rel_decrease);
-  else
-    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

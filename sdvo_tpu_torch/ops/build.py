@@ -7,8 +7,7 @@ source, all started together), links the objects into
 loads it with ctypes. The sources expose a plain C interface (no PyTorch
 headers), so the build takes seconds. Each C entry point launches on the
 given stream and returns ``cudaGetLastError()``; ``check`` turns a non-zero
-code into an exception. ``build_log`` keeps what ``-Xptxas -v`` said of each
-kernel's registers, shared memory and spills.
+code into an exception.
 
 Nothing here runs at import time: CPU-only installs import the package and
 never touch nvcc.
@@ -21,7 +20,6 @@ import glob
 import os
 import shutil
 import subprocess
-import time
 from typing import Optional
 
 import torch
@@ -29,24 +27,19 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-# extra nvcc flags (e.g. -DSDVO_LM_PROFILE) give a library of their own
-EXTRA_FLAGS = os.environ.get("SDVO_NVCC_FLAGS", "")
-LIB_PATH = os.path.join(BUILD_DIR, "libsdvo_tpu_torch_kernels"
-                        + "".join(c if c.isalnum() else "_" for c in EXTRA_FLAGS) + ".so")
+LIB_PATH = os.path.join(BUILD_DIR, "libsdvo_tpu_torch_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 _LIB: Optional[ctypes.CDLL] = None
-build_seconds: Optional[float] = None  # wall time of this process's build (None: reused)
-build_log = ""  # the compilers' output of this process's build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "sdvo_lm_align_level": [_P] * 7 + [_F] * 4 + [_P] * 2 + [_I] * 5 + [_F, _I, _P],
+    "sdvo_lm_align_level": [_P] * 7 + [_F] * 4 + [_P] * 2 + [_I] * 5 + [_F, _P],
     "sdvo_fa_align": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
-    "sdvo_pose_refine": [_P] * 6 + [_I, _I, _F, _I, _P],
+    "sdvo_pose_refine": [_P] * 6 + [_I, _I, _F, _P],
     "sdvo_depth_scores": [_P] * 5 + [_I] * 4 + [_P],
     "sdvo_empty_launch": [_P],
 }
@@ -68,13 +61,12 @@ def _stale(sources) -> bool:
 
 
 def _compile(sources):
-    """One nvcc per source, all at once, then the link; returns the log."""
+    """One nvcc per source, all at once, then the link."""
     nvcc = _nvcc()
     obj_dir = os.path.join(BUILD_DIR, f"obj{os.getpid()}")
     os.makedirs(obj_dir, exist_ok=True)
     objects = [os.path.join(obj_dir, os.path.basename(s)[:-3] + ".o") for s in sources]
-    extra = EXTRA_FLAGS.split()
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *extra, "-Xptxas", "-v", "-c", "-o", o, s],
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for s, o in zip(sources, objects)]
     logs = [p.communicate()[0] for p in procs]
@@ -88,21 +80,18 @@ def _compile(sources):
         raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
     os.replace(tmp, LIB_PATH)
     shutil.rmtree(obj_dir, ignore_errors=True)
-    return "".join(logs)
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it first when missing or stale."""
-    global _LIB, build_seconds, build_log
+    global _LIB
     if _LIB is not None:
         return _LIB
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     if _stale(sources + headers):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        t0 = time.perf_counter()
-        build_log = _compile(sources)
-        build_seconds = time.perf_counter() - t0
+        _compile(sources)
     lib = ctypes.CDLL(LIB_PATH)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

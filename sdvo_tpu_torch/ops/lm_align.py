@@ -204,12 +204,10 @@ def lm_result(out_pose, out_stats, dtype=torch.float32):
 
 def kernel_launcher(T_init: SE3, windows, ref_patches, J, points_ref, origins, visible,
                     fx: float, fy: float, cx: float, cy: float, patch: int = 5,
-                    max_iters: int = 12, min_rel_decrease: float = 1e-3, warps: int = 0):
+                    max_iters: int = 12, min_rel_decrease: float = 1e-3):
     """Checks the inputs, allocates the outputs and returns (launch, out_pose
     (3, 4), out_stats (4,) = [chi², n_vis, iterations, 0]): ``launch()``
-    enqueues the kernel alone, on the current stream, and counts it.
-    ``warps`` picks the block size (32 or 16 warps; 0: the faster one) and is
-    there for measurements only."""
+    enqueues the kernel alone, on the current stream, and counts it."""
     dev = windows.device
     N, WH, WW = windows.shape
     P2 = patch * patch
@@ -230,7 +228,7 @@ def kernel_launcher(T_init: SE3, windows, ref_patches, J, points_ref, origins, v
     args = (pose.data_ptr(), windows.data_ptr(), ref_patches.data_ptr(), J.data_ptr(),
             points_ref.data_ptr(), origins.data_ptr(), vis.data_ptr(),
             float(fx), float(fy), float(cx), float(cy), out_pose.data_ptr(), out_stats.data_ptr(),
-            N, WH, WW, patch, max_iters, float(min_rel_decrease), warps)
+            N, WH, WW, patch, max_iters, float(min_rel_decrease))
     launch = build.launcher(sys.modules[__name__], "lm_align_level", "sdvo_lm_align_level", args, dev,
                             (pose, vis, windows, ref_patches, J, points_ref, origins))
     return launch, out_pose, out_stats

@@ -90,12 +90,10 @@ def pose_refine_plain(T_init: SE3, points_w, bearings, valid, max_iters: int = 8
 
 
 def kernel_launcher(T_init: SE3, points_w, bearings, valid, max_iters: int = 8,
-                    min_rel_decrease: float = 1e-3, warps: int = 0):
+                    min_rel_decrease: float = 1e-3):
     """Checks the inputs, allocates the outputs and returns (launch, out_pose
     (3, 4), out_stats (4,) = [chi², n_vis, iterations, 0]): ``launch()``
-    enqueues the kernel alone, on the current stream, and counts it.
-    ``warps`` picks the block size (5 or 1 warps up to 160 observations, 8 for
-    any number; 0: the fastest for N) and is there for measurements only."""
+    enqueues the kernel alone, on the current stream, and counts it."""
     dev = points_w.device
     N = points_w.shape[0]
     f32 = torch.float32
@@ -111,7 +109,7 @@ def kernel_launcher(T_init: SE3, points_w, bearings, valid, max_iters: int = 8,
     out_pose = torch.empty((3, 4), dtype=f32, device=dev)
     out_stats = torch.empty((4,), dtype=f32, device=dev)
     args = (pose.data_ptr(), points_w.data_ptr(), bearings.data_ptr(), vis.data_ptr(),
-            out_pose.data_ptr(), out_stats.data_ptr(), N, max_iters, float(min_rel_decrease), warps)
+            out_pose.data_ptr(), out_stats.data_ptr(), N, max_iters, float(min_rel_decrease))
     launch = build.launcher(sys.modules[__name__], "pose_refine", "sdvo_pose_refine", args, dev,
                             (pose, vis, points_w, bearings))
     return launch, out_pose, out_stats

@@ -11,7 +11,7 @@ tolerances are ``selfcheck.agrees``'s.
 import pytest
 import torch
 
-from sdvo_tpu_torch.ops import fa_align, lm_align, selfcheck
+from sdvo_tpu_torch.ops import fa_align, selfcheck
 
 SMALL = {"lm": 64, "fa": 32, "pose": 40, "depth_filters": 64}
 CASES = ["lm_align_level[L0]", "lm_align_level[L1]", "lm_align_level[L2]", "lm_align_level[L3]",
@@ -59,20 +59,6 @@ def test_lm_kernel_matches_plain_at_extra_shapes(case):
     if case.endswith("-blind"):  # nothing visible: the initial pose comes back untouched
         assert err == 0.0
         assert torch.equal(got[0].rotation, torch.eye(3, device=dev))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("case,warps", [("lm_align_level[L3]", 16), ("lm_align_level[L3]", 32),
-                                        ("pose_refine", 1), ("pose_refine", 5), ("pose_refine", 8)])
-def test_every_block_size_of_the_lm_kernels_matches_plain(case, warps):
-    dev = _cuda()
-    problem, = [p for p in selfcheck.kernel_problems(dev, SMALL) if p[0] == case]
-    launch, (out_pose, stats) = selfcheck.kernel_launcher(*problem, warps=warps)
-    launch()
-    torch.cuda.synchronize()
-    want = selfcheck.case_calls(*problem)[1]()
-    err, ok = selfcheck.agrees(case, lm_align.lm_result(out_pose, stats)[:2], want)
-    assert ok, (case, warps, err)
 
 
 @pytest.mark.gpu
