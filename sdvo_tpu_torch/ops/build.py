@@ -38,7 +38,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "sdvo_lm_align_level": [_P] * 7 + [_F] * 4 + [_P] * 2 + [_I] * 5 + [_F, _P],
-    "sdvo_fa_align": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+    "sdvo_fa_align": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
+    "sdvo_fa_align_form": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _I, _P, _P],
     "sdvo_pose_refine": [_P] * 6 + [_I, _I, _F, _P],
     "sdvo_depth_scores": [_P] * 5 + [_I] * 4 + [_P],
     "sdvo_empty_launch": [_P],
@@ -125,14 +126,17 @@ def launcher(module, name: str, symbol: str, args: tuple, device: torch.device, 
     return launch
 
 
-def check_inputs(name: str, device: torch.device, shapes: dict, **tensors):
-    """Wrapper-side checks before a launch: every tensor float32, contiguous,
-    on ``device`` and of the shape ``shapes[key]``."""
+def check_inputs(name: str, device: torch.device, shapes: dict, dtypes: Optional[dict] = None,
+                 **tensors):
+    """Wrapper-side checks before a launch: every tensor contiguous, on
+    ``device``, of the shape ``shapes[key]`` and of the type ``dtypes[key]``
+    (float32 where not named)."""
     for key, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {key} on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+        want = (dtypes or {}).get(key, torch.float32)
+        if t.dtype != want:
+            raise TypeError(f"{name}: {key} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
         if tuple(t.shape) != tuple(shapes[key]):

@@ -1,8 +1,9 @@
 """K2 — batched 2D + illumination feature alignment (N independent LMs).
 
 Port of ``sdvo_tpu.ops.pallas_fa.fa_align_batch``. ``fa_align_batch`` is the
-wrapper: CUDA tensors go to ``csrc/fa_align.cu`` (one warp per feature), CPU
-tensors to ``fa_align_batch_plain``. Semantics of the Pallas kernel, which
+wrapper: CUDA tensors go to ``csrc/fa_align.cu`` (one warp per feature, which
+leaves its loop when the feature stalls), CPU tensors to
+``fa_align_batch_plain``. Semantics of the Pallas kernel, which
 differ from the XLA path of ``align_features_2d_cached``: the per-feature
 median is a 10-step bisection, the 10 iterations are unrolled, and a feature
 freezes the moment it stalls.
@@ -152,29 +153,34 @@ def fa_align_batch_plain(windows, ref_patch, gx, gy, uv_init, origins, live, pat
 def kernel_launcher(windows, ref_patch, gx, gy, uv_init, origins, live, patch: int = 5,
                     max_iters: int = 10, sigma_floor: float = 1.0,
                     contrast_threshold: float = 1.0):
-    """Checks the inputs, allocates the output and returns (launch, out
-    (N, 4) = [u, v, rmse, converged]): ``launch()`` enqueues the kernel alone,
-    on the current stream, and counts it."""
+    """Checks the inputs, allocates the outputs and returns (launch, uv (N, 2),
+    rmse (N,), converged (N,) bool): ``launch()`` enqueues the kernel alone,
+    on the current stream, and counts it. The kernel reads ``live`` as the
+    bool tensor it is and writes ``converged`` as one, so float32 inputs cost
+    no launch but the kernel's."""
     dev = windows.device
     N, WH, WW = windows.shape
     P2 = patch * patch
     f32 = torch.float32
     uv0 = uv_init.to(f32).contiguous()
-    livef = live.to(f32).contiguous()
+    live = live.to(torch.bool).contiguous()
     build.check_inputs(
         "fa_align_batch", dev,
         {"windows": (N, WH, WW), "ref_patch": (N, P2), "gx": (N, P2), "gy": (N, P2),
          "uv_init": (N, 2), "origins": (N, 2), "live": (N,)},
+        dtypes={"live": torch.bool},
         windows=windows, ref_patch=ref_patch, gx=gx, gy=gy, uv_init=uv0, origins=origins,
-        live=livef,
+        live=live,
     )
-    out = torch.empty((N, 4), dtype=f32, device=dev)
+    uv = torch.empty((N, 2), dtype=f32, device=dev)
+    rmse = torch.empty((N,), dtype=f32, device=dev)
+    conv = torch.empty((N,), dtype=torch.bool, device=dev)
     args = (windows.data_ptr(), ref_patch.data_ptr(), gx.data_ptr(), gy.data_ptr(), uv0.data_ptr(),
-            origins.data_ptr(), livef.data_ptr(), out.data_ptr(), N, WH, WW, patch, max_iters,
-            float(sigma_floor), float(contrast_threshold))
+            origins.data_ptr(), live.data_ptr(), uv.data_ptr(), rmse.data_ptr(), conv.data_ptr(),
+            N, WH, WW, patch, max_iters, float(sigma_floor), float(contrast_threshold))
     launch = build.launcher(sys.modules[__name__], "fa_align_batch", "sdvo_fa_align", args, dev,
-                            (uv0, livef, windows, ref_patch, gx, gy, origins))
-    return launch, out
+                            (uv0, live, windows, ref_patch, gx, gy, origins))
+    return launch, uv, rmse, conv
 
 
 def fa_align_batch(windows, ref_patch, gx, gy, uv_init, origins, live, patch: int = 5,
@@ -186,8 +192,8 @@ def fa_align_batch(windows, ref_patch, gx, gy, uv_init, origins, live, patch: in
     if not windows.is_cuda:
         return fa_align_batch_plain(windows, ref_patch, gx, gy, uv_init, origins, live, patch,
                                     max_iters, sigma_floor, contrast_threshold)
-    launch, out = kernel_launcher(windows, ref_patch, gx, gy, uv_init, origins, live, patch,
-                                  max_iters, sigma_floor, contrast_threshold)
+    launch, uv, rmse, conv = kernel_launcher(windows, ref_patch, gx, gy, uv_init, origins, live,
+                                             patch, max_iters, sigma_floor, contrast_threshold)
     launch()
     dtype = uv_init.dtype
-    return out[:, 0:2].to(dtype), out[:, 2].to(dtype), out[:, 3] > 0.5
+    return uv.to(dtype), rmse.to(dtype), conv
