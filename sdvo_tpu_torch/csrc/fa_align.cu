@@ -61,6 +61,9 @@ struct Form {
   static constexpr bool select = kForm & 16;  // the median's order statistic, then a scalar bisection
   static constexpr bool fuse = kForm & 32;  // chi² and the next H/g in one reduction, H/g carried
   static constexpr bool prof = kForm & 64;  // cycles per section of feature 0's iterations
+  static constexpr bool radix8 = kForm & 128;  // bisection rounds of 3, 3, 2, 2 steps
+  static constexpr bool addcount = kForm & 256;  // redux.sync add for a step's count
+  static constexpr bool rounds2 = kForm & 512;  // five rounds of 2 steps, edges by monotone selects
 };
 
 // order-preserving unsigned image of a float, and back
@@ -86,8 +89,34 @@ __device__ __forceinline__ float fa_max(float v) {
 // whether at least half of the feature's P² visible pixels have x <= mid:
 // one vote. `seen` is false on every lane of an invisible feature and on the
 // lanes beyond P², so an invisible feature never reaches.
+template <class F>
 __device__ __forceinline__ bool fa_reach(float x, bool seen, float mid, int P2) {
+  if constexpr (F::addcount)
+    return 2 * __reduce_add_sync(kFullMask, (seen && x <= mid) ? 1u : 0u) >= (unsigned)P2;
   return 2 * __popc(__ballot_sync(kFullMask, seen && x <= mid)) >= P2;
+}
+
+// kLevels bisection steps in one round: the votes at all 2^kLevels − 1
+// midpoints the plain sequence could form are taken at once. The midpoints
+// ascend and a vote is monotone in its midpoint, so the new edges are the
+// last midpoint that does not reach and the first that does.
+template <class F, int kLevels>
+__device__ __forceinline__ void fa_round(float x, bool seen, float& lo, float& hi, int P2) {
+  constexpr int M = (1 << kLevels) - 1;
+  float m[M + 2];
+  bool reach[M + 2];
+  m[0] = lo;
+  m[M + 1] = hi;
+#pragma unroll
+  for (int s = (M + 1) / 2; s >= 1; s /= 2)
+#pragma unroll
+    for (int i = s; i <= M; i += 2 * s) m[i] = 0.5f * (m[i - s] + m[i + s]);
+#pragma unroll
+  for (int i = 1; i <= M; ++i) reach[i] = fa_reach<F>(x, seen, m[i], P2);
+#pragma unroll
+  for (int i = 1; i <= M; ++i) lo = reach[i] ? lo : m[i];
+#pragma unroll
+  for (int i = M; i >= 1; --i) hi = reach[i] ? m[i] : hi;
 }
 
 // bisection median of the lanes' x among the seen lanes
@@ -117,6 +146,14 @@ __device__ __forceinline__ float fa_bisect(float x, bool seen, float lo, float h
       lo = reach ? lo : mid;
       hi = reach ? mid : hi;
     }
+  } else if constexpr (F::radix8) {
+    fa_round<F, 3>(x, seen, lo, hi, P2);
+    fa_round<F, 3>(x, seen, lo, hi, P2);
+    fa_round<F, 2>(x, seen, lo, hi, P2);
+    fa_round<F, 2>(x, seen, lo, hi, P2);
+  } else if constexpr (F::rounds2) {
+#pragma unroll
+    for (int s = 0; s < kBisectSteps / 2; ++s) fa_round<F, 2>(x, seen, lo, hi, P2);
   } else if constexpr (F::radix4) {
     // two steps a round: the second step's vote is taken for both outcomes
     // of the first, at the midpoints the plain sequence would form
@@ -124,9 +161,9 @@ __device__ __forceinline__ float fa_bisect(float x, bool seen, float lo, float h
     for (int s = 0; s < kBisectSteps / 2; ++s) {
       const float m1 = 0.5f * (lo + hi);
       const float m0 = 0.5f * (lo + m1), m2 = 0.5f * (m1 + hi);
-      const bool r1 = fa_reach(x, seen, m1, P2);
-      const bool r0 = fa_reach(x, seen, m0, P2);
-      const bool r2 = fa_reach(x, seen, m2, P2);
+      const bool r1 = fa_reach<F>(x, seen, m1, P2);
+      const bool r0 = fa_reach<F>(x, seen, m0, P2);
+      const bool r2 = fa_reach<F>(x, seen, m2, P2);
       const float lo_n = r1 ? (r0 ? lo : m0) : (r2 ? m1 : m2);
       const float hi_n = r1 ? (r0 ? m0 : m1) : (r2 ? m2 : hi);
       lo = lo_n;
@@ -137,7 +174,7 @@ __device__ __forceinline__ float fa_bisect(float x, bool seen, float lo, float h
 #pragma unroll
     for (int s = 0; s < kBisectSteps; ++s) {
       const float mid = 0.5f * (lo + hi);
-      const bool reach = fa_reach(x, seen, mid, P2);
+      const bool reach = fa_reach<F>(x, seen, mid, P2);
       lo = reach ? lo : mid;
       hi = reach ? mid : hi;
     }
@@ -367,6 +404,8 @@ extern "C" int sdvo_fa_align_form(const float* windows, const float* refp, const
     SDVO_FA_FORM(9) SDVO_FA_FORM(16) SDVO_FA_FORM(17) SDVO_FA_FORM(32) SDVO_FA_FORM(33)
     SDVO_FA_FORM(41) SDVO_FA_FORM(49) SDVO_FA_FORM(53)
     SDVO_FA_FORM(64) SDVO_FA_FORM(64 + 9) SDVO_FA_FORM(64 + 49)
+    SDVO_FA_FORM(33 + 128) SDVO_FA_FORM(33 + 512) SDVO_FA_FORM(33 + 256) SDVO_FA_FORM(33 + 128 + 256)
+    SDVO_FA_FORM(64 + 41) SDVO_FA_FORM(64 + 33 + 128)
 #undef SDVO_FA_FORM
   }
   return (int)cudaErrorInvalidValue;

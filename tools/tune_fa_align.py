@@ -23,9 +23,10 @@ from sdvo_tpu_torch.ops import build, fa_align, selfcheck  # noqa: E402
 
 BITS = {1: "redux min/max", 2: "nine sums interleaved", 4: "window in shared",
         8: "two bisection steps a round", 16: "order statistic + scalar bisection",
-        32: "chi2 and next H/g in one reduction"}
-FORMS = (0, 1, 2, 4, 8, 9, 16, 17, 32, 33, 41, 49, 53)
-BEST = 49
+        32: "chi2 and next H/g in one reduction", 128: "bisection rounds of 3, 3, 2, 2 steps",
+        256: "redux add for the count", 512: "five rounds of 2 steps, monotone selects"}
+FORMS = (0, 1, 2, 4, 8, 9, 16, 17, 32, 33, 41, 49, 53, 161, 545, 289, 417)
+BEST = 41
 SECTIONS = ("H/g sums", "solve", "sample", "robust scale", "chi2 (+H/g) sum", "bookkeeping")
 
 
@@ -95,7 +96,7 @@ def main() -> int:
                 curve.append(round(selfcheck.device_ms(launch), 5))
             print(f"N={n} form {form} device_ms at max_iters 0..10: {curve}", flush=True)
     args = selfcheck.fa_problem(dev, n=150)
-    for form in (0, 9, BEST):
+    for form in (0, 9, BEST, 161):
         prof = torch.zeros(8 + 150, dtype=torch.int64, device=dev)
         launch, _ = form_launcher(args, 64 + form, prof=prof)
         for _ in range(3):
