@@ -12,6 +12,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    kernel), the least time the card could take for the same work
    (``selfcheck.bound_ms``), and, where that bound is one of bytes above the
    empty kernel's time, the kernel's time with its inputs in device memory.
+   Then K1, K2 and K3 against their plain versions at the extra shapes of
+   ``selfcheck.extra_problems`` (correctness only).
 4. Drives ``DeviceSystem`` (on its default device, the card) — bootstrap plus
    chunks of 8 supersteps — on the
    rendered 1241×376 scene of ``bench.py`` with its overrides, asserts its
@@ -103,7 +105,27 @@ def check_kernels(device, failures):
             r[key] += value
     for r in rows.values():
         r["bound_by"] = "bytes" if r.pop("t_bytes") >= r.pop("t_flops") else "operations"
+    check_extra_shapes(device, failures)
     return rows
+
+
+def check_extra_shapes(device, failures):
+    """K1, K2 and K3 against their plain versions at the shapes their thread
+    mappings make interesting; nothing is timed."""
+    import torch
+
+    from sdvo_tpu_torch.ops import selfcheck
+
+    for name, args, kw in selfcheck.extra_problems(device):
+        kernel, plain = selfcheck.case_calls(name, args, kw)
+        got = kernel()
+        torch.cuda.synchronize()
+        err, ok = selfcheck.agrees(name, got, plain())
+        exact = name.endswith("-blind]") or name.endswith("[dead]")  # the input comes back
+        print(f"extra shape {name}: max_abs_err {err:.3e}" + (" (must be 0)" if exact else ""),
+              flush=True)
+        if not ok or (exact and err != 0.0):
+            failures.append(f"{name} disagrees with its plain version: {err}")
 
 
 def run_main_path(device, card: str):

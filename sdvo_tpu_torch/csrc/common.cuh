@@ -2,9 +2,9 @@
 //
 // All arithmetic is float32, as the Pallas kernels of sdvo_tpu/ops. The
 // scalar LM logic (Cholesky, SE3 exp, accept/reject) is evaluated
-// redundantly by every thread from reduced sums that are bit-identical in
-// every thread (a warp's xor-shuffle sums here, a block's in lm_block.cuh),
-// so every thread takes the same branch.
+// redundantly by every thread from reduced values that are bit-identical in
+// every thread (a warp's xor-shuffle sums and redux.sync extremes here, a
+// block's in lm_block.cuh), so every thread takes the same branch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,13 +20,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
   return v;
 }
+// order-preserving unsigned image of a float, and back
+__device__ __forceinline__ unsigned ordered_bits(float f) {
+  const unsigned u = __float_as_uint(f);
+  return u ^ ((unsigned)((int)u >> 31) | 0x80000000u);
+}
+__device__ __forceinline__ float from_ordered_bits(unsigned k) {
+  return __uint_as_float(k ^ ((unsigned)((int)~k >> 31) | 0x80000000u));
+}
+// a warp's minimum and maximum: one redux.sync on the integer image each
 __device__ __forceinline__ float warp_min(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(kFullMask, v, off));
-  return v;
+  return from_ordered_bits(__reduce_min_sync(kFullMask, ordered_bits(v)));
 }
 __device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, off));
-  return v;
+  return from_ordered_bits(__reduce_max_sync(kFullMask, ordered_bits(v)));
 }
 
 // 6×6 Cholesky solve of (H + diag) x = g; H packed lower-triangular row-major

@@ -14,17 +14,26 @@
 // at the card's memory rate) nor operations (≈ 4 MFLOP), but the length of
 // one warp's chain of dependent cross-lane steps: 150 warps are about one
 // per SM, so nothing hides a step's latency. What the design does about it,
-// each point leaving every output bit as the straightforward form gives it:
+// each point leaving every output bit as the straightforward form gives it
+// (one shuffle reduction per sum, count, minimum and maximum; two robust
+// scales and nine H/g sums an iteration; always max_iters iterations):
 //  - a bisection step's count is one vote (__ballot_sync + __popc), an exact
 //    integer, not a five-step shuffle sum of 0/1 floats; visibility is
 //    uniform over a feature, so the visible count is P² or 0 with no
 //    reduction, and `count ≥ half` is `2·votes ≥ P²`;
-//  - the largest deviation from the median is taken from the residuals'
-//    minimum and maximum (rounding is monotonic), not from a third reduction;
+//  - two bisection steps a round: the second step's vote is taken for both
+//    outcomes of the first, so ten steps are five dependent rounds;
+//  - minimum and maximum are one redux.sync each on the order-preserving
+//    integer image of the float (common.cuh), and the largest deviation
+//    from the median is taken from them (rounding is monotonic), not from a
+//    third reduction;
 //  - the robust scale is evaluated once per iteration: the weights of the
 //    trial residuals, needed for chi², are carried through the accept and
 //    are the next iteration's weights (as is the trial sample, which is the
 //    epilogue's);
+//  - chi² and the nine H/g sums of the trial weights go through one
+//    interleaved butterfly; H and g are carried, the trial's on an accept,
+//    the unchanged old ones on a reject;
 //  - the loop is left at the stall, after which no output can change: a
 //    warp's time is what its feature needs, the launch's the slowest
 //    feature's.
@@ -33,7 +42,9 @@
 namespace sdvo {
 namespace {
 
+constexpr int kFaWarpsPerBlock = 4;
 constexpr int kBisectSteps = 10;  // sdvo_tpu/ops/pallas_fa.py::_BISECT_STEPS
+static_assert(kBisectSteps % 2 == 0, "fa_bisect takes two steps a round");
 
 struct FaArgs {
   const float* win;  // (N, WH, WW)
@@ -46,156 +57,48 @@ struct FaArgs {
   float* uv;  // (N, 2)
   float* rmse;  // (N,)
   uint8_t* conv;  // (N,) bool
-  long long* prof;  // (8 + N,) cycles per section, iterations per feature; or null
   int N, WH, WW, patch, max_iters;
   float sigma_floor, contrast;
 };
 
-// Forms under measurement (compile-time bits; the launch picks one).
-template <int kForm>
-struct Form {
-  static constexpr bool redux = kForm & 1;  // redux.sync for min/max
-  static constexpr bool sum9 = kForm & 2;  // the nine H/g sums interleaved by hand
-  static constexpr bool smem = kForm & 4;  // the window in shared memory
-  static constexpr bool radix4 = kForm & 8;  // two bisection steps a round
-  static constexpr bool select = kForm & 16;  // the median's order statistic, then a scalar bisection
-  static constexpr bool fuse = kForm & 32;  // chi² and the next H/g in one reduction, H/g carried
-  static constexpr bool prof = kForm & 64;  // cycles per section of feature 0's iterations
-  static constexpr bool radix8 = kForm & 128;  // bisection rounds of 3, 3, 2, 2 steps
-  static constexpr bool addcount = kForm & 256;  // redux.sync add for a step's count
-  static constexpr bool rounds2 = kForm & 512;  // five rounds of 2 steps, edges by monotone selects
-};
-
-// order-preserving unsigned image of a float, and back
-__device__ __forceinline__ unsigned ordered_bits(float f) {
-  const unsigned u = __float_as_uint(f);
-  return u ^ ((unsigned)((int)u >> 31) | 0x80000000u);
-}
-__device__ __forceinline__ float from_ordered_bits(unsigned k) {
-  return __uint_as_float(k ^ ((unsigned)((int)~k >> 31) | 0x80000000u));
-}
-
-template <class F>
-__device__ __forceinline__ float fa_min(float v) {
-  if constexpr (F::redux) return from_ordered_bits(__reduce_min_sync(kFullMask, ordered_bits(v)));
-  else return warp_min(v);
-}
-template <class F>
-__device__ __forceinline__ float fa_max(float v) {
-  if constexpr (F::redux) return from_ordered_bits(__reduce_max_sync(kFullMask, ordered_bits(v)));
-  else return warp_max(v);
-}
-
 // whether at least half of the feature's P² visible pixels have x <= mid:
 // one vote. `seen` is false on every lane of an invisible feature and on the
 // lanes beyond P², so an invisible feature never reaches.
-template <class F>
 __device__ __forceinline__ bool fa_reach(float x, bool seen, float mid, int P2) {
-  if constexpr (F::addcount)
-    return 2 * __reduce_add_sync(kFullMask, (seen && x <= mid) ? 1u : 0u) >= (unsigned)P2;
   return 2 * __popc(__ballot_sync(kFullMask, seen && x <= mid)) >= P2;
 }
 
-// kLevels bisection steps in one round: the votes at all 2^kLevels − 1
-// midpoints the plain sequence could form are taken at once. The midpoints
-// ascend and a vote is monotone in its midpoint, so the new edges are the
-// last midpoint that does not reach and the first that does.
-template <class F, int kLevels>
-__device__ __forceinline__ void fa_round(float x, bool seen, float& lo, float& hi, int P2) {
-  constexpr int M = (1 << kLevels) - 1;
-  float m[M + 2];
-  bool reach[M + 2];
-  m[0] = lo;
-  m[M + 1] = hi;
-#pragma unroll
-  for (int s = (M + 1) / 2; s >= 1; s /= 2)
-#pragma unroll
-    for (int i = s; i <= M; i += 2 * s) m[i] = 0.5f * (m[i - s] + m[i + s]);
-#pragma unroll
-  for (int i = 1; i <= M; ++i) reach[i] = fa_reach<F>(x, seen, m[i], P2);
-#pragma unroll
-  for (int i = 1; i <= M; ++i) lo = reach[i] ? lo : m[i];
-#pragma unroll
-  for (int i = M; i >= 1; --i) hi = reach[i] ? m[i] : hi;
-}
-
-// bisection median of the lanes' x among the seen lanes
-template <class F>
+// bisection median of the lanes' x among the seen lanes, two steps a round:
+// the three votes of a round are at the midpoints the plain sequence forms
 __device__ __forceinline__ float fa_bisect(float x, bool seen, float lo, float hi, int P2) {
-  if constexpr (F::select) {
-    // "at least half of the P² values are <= mid" holds exactly when the
-    // ceil(P²/2)-th smallest value is <= mid: find that value once (every
-    // lane counts the values below its own and those not above it), then
-    // bisect against it with no cross-lane step
-    const float key = seen ? x : INFINITY;
-    int lt = 0, le = 0;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float xj = __shfl_sync(kFullMask, key, j);
-      lt += xj < key;
-      le += xj <= key;
-    }
-    const int rank = (P2 + 1) / 2 - 1;
-    const unsigned holders = __ballot_sync(kFullMask, seen && lt <= rank && rank < le);
-    const float m = __shfl_sync(kFullMask, key, __ffs(holders) - 1);
-    const bool any = holders != 0;  // an invisible feature never reaches
-#pragma unroll
-    for (int s = 0; s < kBisectSteps; ++s) {
-      const float mid = 0.5f * (lo + hi);
-      const bool reach = any && m <= mid;
-      lo = reach ? lo : mid;
-      hi = reach ? mid : hi;
-    }
-  } else if constexpr (F::radix8) {
-    fa_round<F, 3>(x, seen, lo, hi, P2);
-    fa_round<F, 3>(x, seen, lo, hi, P2);
-    fa_round<F, 2>(x, seen, lo, hi, P2);
-    fa_round<F, 2>(x, seen, lo, hi, P2);
-  } else if constexpr (F::rounds2) {
-#pragma unroll
-    for (int s = 0; s < kBisectSteps / 2; ++s) fa_round<F, 2>(x, seen, lo, hi, P2);
-  } else if constexpr (F::radix4) {
-    // two steps a round: the second step's vote is taken for both outcomes
-    // of the first, at the midpoints the plain sequence would form
-#pragma unroll
-    for (int s = 0; s < kBisectSteps / 2; ++s) {
-      const float m1 = 0.5f * (lo + hi);
-      const float m0 = 0.5f * (lo + m1), m2 = 0.5f * (m1 + hi);
-      const bool r1 = fa_reach<F>(x, seen, m1, P2);
-      const bool r0 = fa_reach<F>(x, seen, m0, P2);
-      const bool r2 = fa_reach<F>(x, seen, m2, P2);
-      const float lo_n = r1 ? (r0 ? lo : m0) : (r2 ? m1 : m2);
-      const float hi_n = r1 ? (r0 ? m0 : m1) : (r2 ? m2 : hi);
-      lo = lo_n;
-      hi = hi_n;
-    }
-    static_assert(kBisectSteps % 2 == 0, "two steps a round");
-  } else {
-#pragma unroll
-    for (int s = 0; s < kBisectSteps; ++s) {
-      const float mid = 0.5f * (lo + hi);
-      const bool reach = fa_reach<F>(x, seen, mid, P2);
-      lo = reach ? lo : mid;
-      hi = reach ? mid : hi;
-    }
+  for (int s = 0; s < kBisectSteps / 2; ++s) {
+    const float m1 = 0.5f * (lo + hi);
+    const float m0 = 0.5f * (lo + m1), m2 = 0.5f * (m1 + hi);
+    const bool r1 = fa_reach(x, seen, m1, P2);
+    const bool r0 = fa_reach(x, seen, m0, P2);
+    const bool r2 = fa_reach(x, seen, m2, P2);
+    const float lo_n = r1 ? (r0 ? lo : m0) : (r2 ? m1 : m2);
+    const float hi_n = r1 ? (r0 ? m0 : m1) : (r2 ? m2 : hi);
+    lo = lo_n;
+    hi = hi_n;
   }
   return 0.5f * (lo + hi);
 }
 
 // per-feature Tukey weight of this lane's residual (_pf_tukey); `visible` is
 // the feature's, `seen` = visible and lane < P²
-template <class F>
 __device__ __forceinline__ float fa_tukey(float r, bool seen, bool visible, int P2,
                                           float sigma_floor) {
-  float lo = fa_min<F>(seen ? r : kBig);
-  float hi = fa_max<F>(seen ? r : -kBig);
+  float lo = warp_min(seen ? r : kBig);
+  float hi = warp_max(seen ? r : -kBig);
   lo = visible ? lo : 0.f;
   hi = visible ? hi : 1.f;
-  const float med = fa_bisect<F>(r, seen, lo, hi, P2);
+  const float med = fa_bisect(r, seen, lo, hi, P2);
   const float dev = fabsf(r - med);
   // max of |r − med| over the seen lanes lies at the smallest or largest r
   const float hi2 = visible ? fmaxf(fabsf(lo - med), fabsf(hi - med)) : 0.f;
-  const float mad = fa_bisect<F>(dev, seen, 0.f, hi2, P2);
+  const float mad = fa_bisect(dev, seen, 0.f, hi2, P2);
   const float c = 4.6851f * fmaxf(1.4826f * mad, sigma_floor);
   const float w = 1.f - (r * r) / (c * c);
   return (seen && fabsf(r) <= c) ? w * w : 0.f;
@@ -214,22 +117,24 @@ __device__ __forceinline__ void warp_sum_n(float (&s)[n]) {
   }
 }
 
-template <class F>
+// s[0] = chi², s[1..6] = H00 H01 H02 H11 H12 H22, s[7..9] = g of weights w
+// and residuals r
+__device__ __forceinline__ void fa_sums(float w, float r, float gx, float gy, float (&s)[10]) {
+  const float wgx = w * gx, wgy = w * gy;
+  s[0] = r * r * w;
+  s[1] = wgx * gx; s[2] = wgx * gy; s[3] = wgx; s[4] = wgy * gy; s[5] = wgy; s[6] = w;
+  s[7] = wgx * r; s[8] = wgy * r; s[9] = w * r;
+  warp_sum_n(s);
+}
+
 __global__ void fa_align_kernel(FaArgs a) {
-  extern __shared__ float fa_windows[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * (blockDim.x >> 5) + warp;
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kFaWarpsPerBlock + (threadIdx.x >> 5);
   if (n >= a.N) return;  // warp-uniform
   const int P = a.patch, P2 = P * P, half = P / 2;
   const bool act = lane < P2;
   const int k = act ? lane : 0;
   const float* win = a.win + (size_t)n * a.WH * a.WW;
-  if constexpr (F::smem) {
-    float* mine = fa_windows + warp * a.WH * a.WW;
-    for (int i = lane; i < a.WH * a.WW; i += 32) mine[i] = win[i];
-    __syncwarp();
-    win = mine;
-  }
   const float ref = act ? a.refp[(size_t)n * P2 + k] : 0.f;
   const float gx = act ? a.gx[(size_t)n * P2 + k] : 0.f;
   const float gy = act ? a.gy[(size_t)n * P2 + k] : 0.f;
@@ -251,46 +156,14 @@ __global__ void fa_align_kernel(FaArgs a) {
   bool seen = vis && act;
   float o = -warp_sum(seen ? cur - ref : 0.f) / (vis ? (float)P2 : 1.f);
   float r = seen ? -(cur - ref + o) : 0.f;
-  float w = fa_tukey<F>(r, seen, vis, P2, a.sigma_floor);
-  // s[0] the chi² term, s[1..9] the H/g terms of weights w and residuals r
-  auto terms = [&](float w, float r, float (&s)[10]) {
-    const float wgx = w * gx, wgy = w * gy;
-    s[0] = r * r * w;
-    s[1] = wgx * gx; s[2] = wgx * gy; s[3] = wgx; s[4] = wgy * gy; s[5] = wgy; s[6] = w;
-    s[7] = wgx * r; s[8] = wgy * r; s[9] = w * r;
-  };
-  float chi, hg[10];
-  if constexpr (F::fuse) {
-    terms(w, r, hg);
-    warp_sum_n(hg);
-    chi = hg[0];
-  } else {
-    chi = warp_sum(r * r * w);
-  }
+  float hg[10];  // chi², H, g at the accepted (u, v, o)
+  fa_sums(fa_tukey(r, seen, vis, P2, a.sigma_floor), r, gx, gy, hg);
   float lam = 1e-2f, nu = 2.f;
   bool stalled = !live;
-  long long t[7], acc[6] = {0, 0, 0, 0, 0, 0};
-  int iters = 0;
   for (int it = 0; it < a.max_iters && !stalled; ++it) {
-    if constexpr (F::prof) t[0] = clock64();
-    float H00, H01, H02, H11, H12, H22, g0, g1, g2;
-    if constexpr (F::fuse) {
-      H00 = hg[1]; H01 = hg[2]; H02 = hg[3]; H11 = hg[4]; H12 = hg[5]; H22 = hg[6];
-      g0 = hg[7]; g1 = hg[8]; g2 = hg[9];
-    } else if constexpr (F::sum9) {
-      float s[10];
-      terms(w, r, s);
-      float s9[9] = {s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9]};
-      warp_sum_n(s9);
-      H00 = s9[0]; H01 = s9[1]; H02 = s9[2]; H11 = s9[3]; H12 = s9[4]; H22 = s9[5];
-      g0 = s9[6]; g1 = s9[7]; g2 = s9[8];
-    } else {
-      const float wgx = w * gx, wgy = w * gy;
-      H00 = warp_sum(wgx * gx); H01 = warp_sum(wgx * gy); H02 = warp_sum(wgx);
-      H11 = warp_sum(wgy * gy); H12 = warp_sum(wgy); H22 = warp_sum(w);
-      g0 = warp_sum(wgx * r); g1 = warp_sum(wgy * r); g2 = warp_sum(w * r);
-    }
-    if constexpr (F::prof) t[1] = clock64();
+    const float chi = hg[0];
+    const float H00 = hg[1], H01 = hg[2], H02 = hg[3], H11 = hg[4], H12 = hg[5], H22 = hg[6];
+    const float g0 = hg[7], g1 = hg[8], g2 = hg[9];
     const float diag_max = fmaxf(fabsf(H00), fmaxf(fabsf(H11), fabsf(H22)));
     const float lam_eff = (it == 0) ? lam * diag_max : lam;
     // damped 3×3 cofactor solve (_solve3)
@@ -309,23 +182,13 @@ __global__ void fa_align_kernel(FaArgs a) {
     const float dx1 = bad ? 0.f : (cB * g0 + cE * g1 + cF * g2) / det_s;
     const float dx2 = bad ? 0.f : (cC * g0 + cF * g1 + cI * g2) / det_s;
     const float un = u + dx0, vn = v + dx1, on = o + dx2;
-    if constexpr (F::prof) t[2] = clock64();
     bool vis_n;
     const float cur_n = sample(un, vn, &vis_n);
     const bool seen_n = vis_n && act;
     const float r_n = seen_n ? -(cur_n - ref + on) : 0.f;
-    if constexpr (F::prof) t[3] = clock64();
-    const float w_n = fa_tukey<F>(r_n, seen_n, vis_n, P2, a.sigma_floor);
-    if constexpr (F::prof) t[4] = clock64();
-    float chi_n, hg_n[10];
-    if constexpr (F::fuse) {
-      terms(w_n, r_n, hg_n);
-      warp_sum_n(hg_n);
-      chi_n = hg_n[0];
-    } else {
-      chi_n = warp_sum(r_n * r_n * w_n);
-    }
-    if constexpr (F::prof) t[5] = clock64();
+    float hg_n[10];
+    fa_sums(fa_tukey(r_n, seen_n, vis_n, P2, a.sigma_floor), r_n, gx, gy, hg_n);
+    const float chi_n = hg_n[0];
     const float pred = dx0 * (lam_eff * dx0 + g0) + dx1 * (lam_eff * dx1 + g1) +
                        dx2 * (lam_eff * dx2 + g2);
     const float rho = (chi - chi_n) / fmaxf(pred, 1e-30f);
@@ -336,26 +199,12 @@ __global__ void fa_align_kernel(FaArgs a) {
     const float rel_dec = (chi - chi_n) / chi_ref;
     const float rel_pred = pred / chi_ref;
     if (success) {  // not stalled: the loop has been left otherwise
-      u = un; v = vn; o = on; chi = chi_n;
-      cur = cur_n; r = r_n; w = w_n; vis = vis_n; seen = seen_n;
-      if constexpr (F::fuse) {
+      u = un; v = vn; o = on;
+      cur = cur_n; r = r_n; vis = vis_n; seen = seen_n;
 #pragma unroll
-        for (int i = 1; i < 10; ++i) hg[i] = hg_n[i];
-      }
+      for (int i = 0; i < 10; ++i) hg[i] = hg_n[i];
     }
     stalled = (success && rel_dec < 1e-3f) || (rel_pred < 1e-4f);
-    if constexpr (F::prof) {
-      t[6] = clock64();
-      for (int i = 0; i < 6; ++i) acc[i] += t[i + 1] - t[i];
-      ++iters;
-    }
-  }
-  if constexpr (F::prof) {
-    if (lane == 0) a.prof[8 + n] = iters;
-    if (n == 0 && lane == 0) {
-      for (int i = 0; i < 6; ++i) a.prof[i] = acc[i];
-      a.prof[6] = iters;
-    }
   }
   // cur and r are the sample and residual at the final (u, v, o)
   const float n_vis = vis ? (float)P2 : 1.f;
@@ -374,48 +223,19 @@ __global__ void fa_align_kernel(FaArgs a) {
   }
 }
 
-template <class F>
-int fa_launch(const FaArgs& a, int warps, cudaStream_t stream) {
-  const int blocks = (a.N + warps - 1) / warps;
-  const size_t shared = F::smem ? sizeof(float) * warps * a.WH * a.WW : 0;
-  if (shared > 48 * 1024) return (int)cudaErrorInvalidValue;
-  if (blocks > 0) fa_align_kernel<F><<<blocks, 32 * warps, shared, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace sdvo
-
-// form: the bits of the forms under measurement; warps: warps (features) a block
-extern "C" int sdvo_fa_align_form(const float* windows, const float* refp, const float* gx,
-                                  const float* gy, const float* uv0, const float* org,
-                                  const uint8_t* live, float* uv, float* rmse, uint8_t* conv,
-                                  int N, int WH, int WW, int patch, int max_iters,
-                                  float sigma_floor, float contrast, int form, int warps,
-                                  long long* prof, void* stream) {
-  using namespace sdvo;
-  if (patch * patch > 32) return (int)cudaErrorInvalidValue;
-  FaArgs a{windows, refp, gx, gy, uv0, org, live, uv, rmse, conv, prof, N, WH, WW, patch,
-           max_iters, sigma_floor, contrast};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (form) {
-#define SDVO_FA_FORM(f) case f: return fa_launch<Form<f>>(a, warps, s);
-    SDVO_FA_FORM(0) SDVO_FA_FORM(1) SDVO_FA_FORM(2) SDVO_FA_FORM(4) SDVO_FA_FORM(8)
-    SDVO_FA_FORM(9) SDVO_FA_FORM(16) SDVO_FA_FORM(17) SDVO_FA_FORM(32) SDVO_FA_FORM(33)
-    SDVO_FA_FORM(41) SDVO_FA_FORM(49) SDVO_FA_FORM(53)
-    SDVO_FA_FORM(64) SDVO_FA_FORM(64 + 9) SDVO_FA_FORM(64 + 49)
-    SDVO_FA_FORM(33 + 128) SDVO_FA_FORM(33 + 512) SDVO_FA_FORM(33 + 256) SDVO_FA_FORM(33 + 128 + 256)
-    SDVO_FA_FORM(64 + 41) SDVO_FA_FORM(64 + 33 + 128)
-#undef SDVO_FA_FORM
-  }
-  return (int)cudaErrorInvalidValue;
-}
 
 extern "C" int sdvo_fa_align(const float* windows, const float* refp, const float* gx,
                              const float* gy, const float* uv0, const float* org,
                              const uint8_t* live, float* uv, float* rmse, uint8_t* conv, int N,
                              int WH, int WW, int patch, int max_iters, float sigma_floor,
                              float contrast, void* stream) {
-  return sdvo_fa_align_form(windows, refp, gx, gy, uv0, org, live, uv, rmse, conv, N, WH, WW, patch,
-                            max_iters, sigma_floor, contrast, 0, 4, nullptr, stream);
+  if (patch * patch > 32) return (int)cudaErrorInvalidValue;
+  sdvo::FaArgs a{windows, refp, gx, gy, uv0, org, live, uv, rmse, conv, N, WH, WW, patch,
+                 max_iters, sigma_floor, contrast};
+  const int blocks = (N + sdvo::kFaWarpsPerBlock - 1) / sdvo::kFaWarpsPerBlock;
+  if (blocks > 0)
+    sdvo::fa_align_kernel<<<blocks, 32 * sdvo::kFaWarpsPerBlock, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }

@@ -97,20 +97,29 @@ def lm_problems(device, n: int = 256, width: int = 1241, height: int = 376, leve
     return out
 
 
-def fa_problem(device, n: int = 150, width: int = 1241, height: int = 376, seed: int = 1):
+def fa_problem(device, n: int = 150, width: int = 1241, height: int = 376, seed: int = 1,
+               patch: int = 5, dead: bool = False, edge: bool = False):
     """K2 inputs: gradient windows (n, 24, 32) around perturbed positions,
-    cached reference patch tables, origins and the live mask."""
+    cached reference patch tables, origins and the live mask (the last two
+    features dead where n > 2; all of them with ``dead``). With ``edge`` every
+    third feature starts 11 px from its window's centre row, where the patch
+    has no support in the window and the feature is invisible."""
     ref, cur, _ = plane_pair(seed, [0.012, -0.008, 0.0, 0.0, 0.0, 0.0], width, height)
     gref = abs_gradient_saturated_sum(torch.from_numpy(ref))
     gcur = abs_gradient_saturated_sum(torch.from_numpy(cur))
     rng = np.random.default_rng(seed)
     uv_ref = rng.uniform(40, [width - 40, height - 40], size=(n, 2)).astype(np.float32)
-    patch, gx, gy, ok = padded_patch_and_gradients(gref, torch.from_numpy(uv_ref), 5)
+    table, gx, gy, ok = padded_patch_and_gradients(gref, torch.from_numpy(uv_ref), patch)
     uv_init = torch.from_numpy((uv_ref + rng.normal(0, 0.5, size=(n, 2))).astype(np.float32))
     win, org, ok_w = window_gather(gcur, uv_init, 24)
+    if edge:
+        uv_init[::3, 1] += 11.0
     live = ok & ok_w
-    live[-2:] = False
-    return [t.contiguous().to(device) for t in (win, patch, gx, gy, uv_init, org, live)]
+    if n > 2:
+        live[-2:] = False
+    if dead:
+        live[:] = False
+    return [t.contiguous().to(device) for t in (win, table, gx, gy, uv_init, org, live)]
 
 
 def pose_problem(device, n: int = 150, outliers: int = 10, seed: int = 2):
@@ -271,6 +280,15 @@ _SCALE_FLOPS = 3 + 4 * 5 + 3 + 8
 _STAGE_FLOPS = 4 * 16
 _HG_FLOPS = 6 + 2 * 27 + 6
 _BILINEAR_FLOPS = 12  # floor, two fractions, three lerps
+# K2, per pixel. An evaluation (one before the loop, one an iteration): sample,
+# residual 2, the robust scale once (min/max 2, two bisections of
+# fa_align.BISECT_STEPS steps at a compare and an add each, deviation and its
+# largest 3, Tukey weight and chi² 8). An iteration besides: w·gx and w·gy 2,
+# the nine H/g sums at a multiply and an add, 6 for the solve's share. At the
+# end: rmse 2, mean 2, variance 3 (the sample is the last evaluation's).
+_FA_EVAL_FLOPS = _BILINEAR_FLOPS + 2 + 2 + 2 * 2 * fa_align.BISECT_STEPS + 3 + 8
+_FA_HG_FLOPS = 2 + 2 * 9 + 6
+_FA_FINAL_FLOPS = 2 + 2 + 3
 _PROJECT_FLOPS = 24  # rotate, translate, divide, scale: once a feature
 
 
@@ -287,7 +305,9 @@ def bound_ms(name: str, shapes: Dict[str, int], iterations: int = None) -> Bound
     3.35 TB/s, or its float32 operations at 67 TFLOP/s, whichever is larger.
     ``shapes``: ``N``, ``WH``, ``WW``, ``P2`` (rows, window height and width,
     patch area; K3 takes ``N`` alone). ``iterations`` are the LM iterations
-    the data needed (K1 and K3 report them; K2 is counted at its fixed 10)."""
+    the data needed (K1 and K3 report them; K2 is counted at 10, the most a
+    feature can need: it is bound by bytes even then, so the features that
+    stall earlier do not move its bound)."""
     base = name.split("[")[0]
     N = shapes["N"]
     if base == "pose_refine":
@@ -303,10 +323,10 @@ def bound_ms(name: str, shapes: Dict[str, int], iterations: int = None) -> Bound
                         + _STAGE_FLOPS)
             flops = (iterations + 1) * per_eval + iterations * N * P2 * _HG_FLOPS
         elif base == "fa_align_batch":
-            nbytes = 4 * N * (WH * WW + 3 * P2 + 5 + 4)
-            # per pixel and iteration: sample, residual, two 12-step bisections
-            # with min/max, the 3-parameter H/g (9 sums), chi²
-            flops = N * P2 * (iterations or 10) * (_BILINEAR_FLOPS + 2 + 2 * 12 * 2 + 6 + 2 * 9 + 8)
+            # the live mask and the converged flag are one byte each
+            nbytes = 4 * N * (WH * WW + 3 * P2 + 4 + 3) + 2 * N
+            its = iterations or 10
+            flops = N * P2 * ((its + 1) * _FA_EVAL_FLOPS + its * _FA_HG_FLOPS + _FA_FINAL_FLOPS)
         elif base == "depth_scores":
             nbytes = 4 * N * (WH * WW + P2 + 2 + 2)
             flops = N * P2 * (_BILINEAR_FLOPS + 1 + 2 + 3)  # sample, mean, centre, squared difference
@@ -343,11 +363,14 @@ def kernel_problems(device, sizes: Dict[str, int] = None) -> List[Tuple[str, tup
 
 
 def extra_problems(device) -> List[Tuple[str, tuple, dict]]:
-    """K1 and K3 problems at the sizes their thread mappings make
+    """K1, K2 and K3 problems at the sizes their thread mappings make
     interesting: a feature count that is no multiple of a warp, more
     residuals than a block keeps in registers, patch 4, one observation,
     more observations than any register tier holds, and nothing visible
-    (which must return the initial pose)."""
+    (which must return the initial pose); for K2 one feature, a count that is
+    no multiple of the warps of a block, patch 4 (half a warp), ten times the
+    main path's count, every feature dead (``uv_init`` comes back) and
+    features whose start has no patch support in the window."""
     T0 = SE3.identity(device=device)
     problems = []
     for tag, n, patch, blind in (("N37", 37, 5, False), ("N300", 300, 5, False),
@@ -363,6 +386,10 @@ def extra_problems(device) -> List[Tuple[str, tuple, dict]]:
         if blind:
             args[2] = torch.zeros_like(args[2])
         problems.append((f"pose_refine[{tag}]", (T0, *args), {}))
+    for tag, n, patch in (("N1", 1, 5), ("N37", 37, 5), ("patch4", 64, 4), ("N1500", 1500, 5),
+                          ("dead", 37, 5), ("edge", 37, 5)):
+        args = fa_problem(device, n=n, patch=patch, dead=tag == "dead", edge=tag == "edge")
+        problems.append((f"fa_align_batch[{tag}]", tuple(args), dict(patch=patch)))
     return problems
 
 
@@ -391,7 +418,8 @@ def kernel_cases(device, sizes: Dict[str, int] = None) -> List[Tuple[str, Callab
 def kernel_launcher(name: str, args: tuple, kw: dict):
     """(launch, output tensors) of a problem of ``kernel_problems``:
     ``launch()`` enqueues the kernel alone (card only). K1 and K3 give
-    (out_pose (3, 4), out_stats = [chi², n_vis, iterations, 0])."""
+    (out_pose (3, 4), out_stats = [chi², n_vis, iterations, 0]), K2 (uv, rmse,
+    converged), K4 (score, ok)."""
     launch, *outs = _OPS[name.split("[")[0]][0].kernel_launcher(*args, **kw)
     return launch, tuple(outs)
 

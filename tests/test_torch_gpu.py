@@ -8,6 +8,8 @@ The problems are ``sdvo_tpu_torch.ops.selfcheck``'s, at small sizes; the
 tolerances are ``selfcheck.agrees``'s.
 """
 
+import functools
+
 import pytest
 import torch
 
@@ -36,11 +38,19 @@ def test_kernel_matches_plain_on_card(case):
     assert ok, (case, err)
 
 
-# K1 and K3 at the sizes their thread mappings make interesting
-# (``selfcheck.extra_problems``), the all-invisible cases included
+# K1, K2 and K3 at the sizes their thread mappings make interesting
+# (``selfcheck.extra_problems``), the all-invisible and all-dead cases included
 EXTRA = ["lm_align_level[N37]", "lm_align_level[N300]", "lm_align_level[patch4]",
          "lm_align_level[N37-blind]", "pose_refine[N1]", "pose_refine[N33]", "pose_refine[N500]",
-         "pose_refine[N1500]", "pose_refine[N33-blind]"]
+         "pose_refine[N1500]", "pose_refine[N33-blind]", "fa_align_batch[N1]", "fa_align_batch[N37]",
+         "fa_align_batch[patch4]", "fa_align_batch[N1500]", "fa_align_batch[dead]",
+         "fa_align_batch[edge]"]
+
+
+@functools.lru_cache(maxsize=None)
+def _extra_problems():
+    """Built once a process: each renders its own scene."""
+    return {p[0]: p for p in selfcheck.extra_problems(torch.device("cuda"))}
 
 
 @pytest.mark.gpu
@@ -48,7 +58,7 @@ EXTRA = ["lm_align_level[N37]", "lm_align_level[N300]", "lm_align_level[patch4]"
 def test_lm_kernel_matches_plain_at_extra_shapes(case):
     """Synchronised after the kernel, so that a hang or a fault shows here."""
     dev = _cuda()
-    problem, = [p for p in selfcheck.extra_problems(dev) if p[0] == case]
+    problem = _extra_problems()[case]
     kernel, plain = selfcheck.case_calls(*problem)
     got = kernel()
     torch.cuda.synchronize()
@@ -59,6 +69,9 @@ def test_lm_kernel_matches_plain_at_extra_shapes(case):
     if case.endswith("-blind"):  # nothing visible: the initial pose comes back untouched
         assert err == 0.0
         assert torch.equal(got[0].rotation, torch.eye(3, device=dev))
+    if case == "fa_align_batch[dead]":  # no live feature: uv_init comes back, none converged
+        assert err == 0.0
+        assert torch.equal(got[0], problem[1][4]) and not got[2].any()
 
 
 @pytest.mark.gpu
@@ -71,3 +84,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         fa_align.fa_align_batch(args[0].double(), *args[1:])
     assert fa_align.launches == before
+
+
+@pytest.mark.gpu
+def test_fa_wrapper_launches_its_kernel_and_nothing_else():
+    """At float32 inputs and a bool mask the K2 wrapper enqueues one kernel,
+    its own: the profiler sees no other device activity."""
+    dev = _cuda()
+    args = selfcheck.fa_problem(dev, n=32)
+    fa_align.fa_align_batch(*args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        uv, rmse, conv = fa_align.fa_align_batch(*args)
+        torch.cuda.synchronize()
+    on_device = [e.key for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.key != "Activity Buffer Request"]
+    assert len(on_device) == 1 and "fa_align_kernel" in on_device[0], on_device
+    assert uv.dtype == torch.float32 and conv.dtype == torch.bool

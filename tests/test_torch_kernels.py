@@ -13,6 +13,7 @@ still catch a changed step or branch.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from scipy.linalg import expm
 
@@ -129,6 +130,34 @@ def test_fa_align_batch_matches_pallas():
     assert np.asarray(jconv).sum() >= 8
     np.testing.assert_allclose(tuv.numpy(), np.asarray(juv), atol=1e-3)
     np.testing.assert_allclose(terr.numpy(), np.asarray(jerr), rtol=1e-3, atol=1e-4)
+
+
+# patch 4: P² = 16, half a warp of the CUDA kernel; N = 1; every feature dead;
+# every third feature starting where its patch has no support in the window
+@pytest.mark.parametrize("n,patch,dead,edge", [(16, 4, False, False), (1, 5, False, False),
+                                               (12, 5, True, False), (12, 5, False, True)],
+                         ids=["patch4", "N1", "dead", "edge"])
+def test_fa_align_batch_shapes_match_pallas(n, patch, dead, edge):
+    args = [a.numpy() for a in selfcheck.fa_problem(torch.device("cpu"), n=n, width=320, height=240,
+                                                    patch=patch, dead=dead, edge=edge)]
+    uv_init, live = args[4], args[6]
+    juv, jerr, jconv = j_fa_align_batch(*(jnp.asarray(a) for a in args), patch=patch, max_iters=10,
+                                        interpret=True)
+    tuv, terr, tconv = fa_align.fa_align_batch(*(_t(a) for a in args), patch=patch, max_iters=10)
+    np.testing.assert_array_equal(tconv.numpy(), np.asarray(jconv))
+    np.testing.assert_allclose(tuv.numpy(), np.asarray(juv), atol=1e-3)
+    np.testing.assert_allclose(terr.numpy(), np.asarray(jerr), rtol=1e-3, atol=1e-4)
+    if dead:
+        assert not live.any() and not tconv.any()
+        np.testing.assert_array_equal(tuv.numpy(), uv_init)
+        np.testing.assert_array_equal(np.asarray(juv), uv_init)
+    elif edge:  # an invisible feature keeps its start and does not converge
+        off = np.arange(n) % 3 == 0
+        assert live[off].any()
+        np.testing.assert_array_equal(tuv.numpy()[off], uv_init[off])
+        assert not tconv.numpy()[off].any() and tconv.numpy()[~off].sum() >= 4
+    else:
+        assert tconv.numpy().sum() >= min(n, 8)
 
 
 def _pose_problem(seed=2, n=40, outliers=4):

@@ -129,21 +129,25 @@ def test_entry_point_on_the_cpu_when_asked(entry):
     assert device.type == "cpu"
 
 
-# main-path shapes: bytes in and out, the bound's time and what sets it
-@pytest.mark.parametrize("name,shapes,iterations,nbytes,ms,by", [
-    ("lm_align_level", dict(N=256, WH=16, WW=32, P2=25), 4, 709_744, 2.12e-4, "bytes"),
-    ("lm_align_level", dict(N=256, WH=16, WW=32, P2=25), 10, 709_744, 2.12e-4, "bytes"),
-    ("fa_align_batch", dict(N=150, WH=24, WW=32, P2=25), None, 511_200, 1.53e-4, "bytes"),
-    ("pose_refine", dict(N=150), 8, 4_312, 7.77e-6, "operations"),
-    ("depth_scores", dict(N=8192, WH=12, WW=32, P2=49), None, 14_319_616, 4.27e-3, "bytes"),
+# main-path shapes: bytes in and out, operations, the bound's time and what sets it
+@pytest.mark.parametrize("name,shapes,iterations,nbytes,flops,ms,by", [
+    ("lm_align_level", dict(N=256, WH=16, WW=32, P2=25), 4, 709_744, 3_224_640, 2.12e-4, "bytes"),
+    ("lm_align_level", dict(N=256, WH=16, WW=32, P2=25), 10, 709_744, 7_601_088, 2.12e-4, "bytes"),
+    ("fa_align_batch", dict(N=150, WH=24, WW=32, P2=25), None, 510_300, 3_765_000, 1.52e-4, "bytes"),
+    ("pose_refine", dict(N=150), 8, 4_312, 520_326, 7.77e-6, "operations"),
+    ("depth_scores", dict(N=8192, WH=12, WW=32, P2=49), None, 14_319_616, 7_225_344, 4.27e-3,
+     "bytes"),
 ], ids=["K1-4it", "K1-10it", "K2", "K3", "K4"])
-def test_bound_ms_at_main_path_shapes(name, shapes, iterations, nbytes, ms, by):
+def test_bound_ms_at_main_path_shapes(name, shapes, iterations, nbytes, flops, ms, by):
     """A pure shape computation: K1 ≈ 0.71 MB → 0.21 µs by bytes at every
     level (its ≈ 7.6 MFLOP at 10 iterations are 0.11 µs); K2 ≈ 0.51 MB →
-    0.15 µs; K3 4.3 KB is 1.3 ns of bytes but ≈ 0.52 MFLOP, 7.8 ns, of
-    operations; K4 ≈ 14.3 MB → 4.3 µs."""
+    0.15 µs (the live mask and the converged flag one byte a feature; its
+    ≈ 3.8 MFLOP — eleven evaluations with one robust scale of two ten-step
+    bisections each, ten H/g passes — are 0.056 µs); K3 4.3 KB is 1.3 ns of
+    bytes but ≈ 0.52 MFLOP, 7.8 ns, of operations; K4 ≈ 14.3 MB → 4.3 µs."""
     bound = selfcheck.bound_ms(name, shapes, iterations)
     assert bound.bytes == nbytes
+    assert bound.flops == flops
     assert bound.by == by
     assert bound.ms == pytest.approx(ms, rel=0.01)
     assert bound.ms == max(bound.bytes / 3.35e12, bound.flops / 67e12) * 1e3

@@ -10,8 +10,9 @@ is wrapped in a ``record_function`` label from here, so the port's code
 carries no instrumentation. Prints the chunk's wall time, the summed kernel
 time, the device idle share (1 − kernel time / wall time; one stream, so
 kernels do not overlap), kernel launches per frame, per-stage host and
-device time, the top kernels by device time, and one JSON line. Imports
-nothing of JAX; fails without a card.
+device time, the top kernels by device time, the port's own four kernels
+(launches and mean device time on the chunk's own data), and one JSON line.
+Imports nothing of JAX; fails without a card.
 """
 
 import json
@@ -40,6 +41,10 @@ STAGES = {  # label: (namespace, attribute) called once per frame or keyframe
     "depth filters (K4)": (D, "update_filters"),
     "keyframe step": (D.DeviceVO, "_keyframe_step"),
 }
+
+
+OWN_KERNELS = {"K1": "lm_align_level_kernel", "K2": "fa_align_kernel", "K3": "pose_refine_kernel",
+               "K4": "depth_scores_kernel"}
 
 
 def _label(name, fn):
@@ -92,11 +97,20 @@ def main() -> int:
         dev = sum(e.time_range.elapsed_us() for e in inside) / 1e3
         print(f"  stage {name:20s} host {host / chunk:7.3f} ms/frame, kernels {dev / chunk:7.3f} "
               f"ms/frame in {len(inside) / chunk:6.1f} launches/frame")
-    top = sorted((a for a in prof.key_averages() if a.key not in STAGES
+    averages = prof.key_averages()
+    top = sorted((a for a in averages if a.key not in STAGES
                   and a.self_device_time_total > 0), key=lambda a: -a.self_device_time_total)
     for a in top[:12]:
         print(f"  kernel {a.key[:60]:60s} {a.count:6d} x  {a.self_device_time_total / 1e3:8.2f} ms")
-    print(json.dumps({"wall_ms": wall_ms, "kernel_ms": busy_ms, "frames": chunk,
+    own = {}
+    for label, stem in OWN_KERNELS.items():
+        hits = [a for a in averages if stem in a.key]
+        count = sum(a.count for a in hits)
+        total = sum(a.self_device_time_total for a in hits) / 1e3
+        own[label] = {"launches": count, "mean_ms": total / max(count, 1)}
+        print(f"  own kernel {label} ({stem}): {count} launches, {total:.3f} ms, "
+              f"{total / max(count, 1):.5f} ms a launch")
+    print(json.dumps({"wall_ms": wall_ms, "own_kernels": own, "kernel_ms": busy_ms, "frames": chunk,
                       "device_events_per_frame": len(kernels) / chunk, "device": card}))
     return 0
 
