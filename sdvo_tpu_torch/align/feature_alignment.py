@@ -2,7 +2,9 @@
 kernel branch of ``sdvo_tpu.align.feature_alignment.align_features_2d_cached``.
 
 Each candidate gets one ``window``-row gradient window around its predicted
-position; K2 (``sdvo_tpu_torch.ops.fa_align``) runs the per-feature LM.
+position; K2 (``sdvo_tpu_torch.ops.fa_align``) runs the per-feature LM. K2 is
+a float32 kernel, as the Pallas kernel is: a float64 caller's tables are cast
+at its boundary and the results come back in ``uv_init``'s dtype.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ def align_features_2d_cached(cur_gradient: torch.Tensor, ref_patch, gx, gy, uv_i
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (uv (N, 2), rmse (N,), converged (N,) bool)."""
     win, org, org_ok = window_gather(cur_gradient, uv_init, window)
-    return fa_align_batch(win, ref_patch, gx, gy, uv_init, org, live & org_ok,
-                          patch=patch_size, max_iters=max_iterations,
-                          contrast_threshold=contrast_threshold)
+    f32 = torch.float32
+    uv, rmse, conv = fa_align_batch(win.to(f32), ref_patch.to(f32), gx.to(f32), gy.to(f32),
+                                    uv_init.to(f32), org.to(f32), live & org_ok, patch=patch_size,
+                                    max_iters=max_iterations, contrast_threshold=contrast_threshold)
+    return uv.to(uv_init.dtype), rmse.to(uv_init.dtype), conv

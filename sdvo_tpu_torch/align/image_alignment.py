@@ -1,23 +1,33 @@
-"""Sparse photometric image alignment against precomputed reference tables —
-port of the device path of ``sdvo_tpu.align.image_alignment.SparseImageAlign``:
-``precompute_ref_windows`` (keyframe cadence), ``align_precomputed`` (every
-frame, its kernel branch), ``_project_level`` and ``_jac_rows``.
+"""Sparse photometric image alignment — port of
+``sdvo_tpu.align.image_alignment.SparseImageAlign``, the branches that run K1
+(``sdvo_tpu_torch.ops.lm_align``): ``align`` (the per-frame host path:
+reference windows gathered per host image each call, the frozen-ESM
+Jacobian) and ``precompute_ref_windows`` / ``align_precomputed`` (the device
+path: reference tables at keyframe cadence), with ``_project_level`` and
+``_jac_rows``.
 
-Pure inverse-compositional, as the JAX precomputed path (it ignores
-``use_esm``). Each level runs K1 (``sdvo_tpu_torch.ops.lm_align``) with the
-Pallas path's iteration taper ``max(4, max_iterations − taper·(max_level −
-level))``.
+The constructor takes the reference's arguments with the reference's
+defaults (``DEFAULT_SETTINGS``: 12 iterations, relative-decrease exit 1e-3;
+``level_taper`` 0; ``use_esm`` on): the host ``System`` builds its aligner
+with them, the device path passes its own values. Each level runs
+``max(4, max_iterations − level_taper·(max_level − level))`` iterations.
+``align_precomputed`` is pure inverse-compositional and ignores ``use_esm``,
+as the reference's does.
+
+K1 is a float32 kernel, as the Pallas kernel is: a float64 caller's tables
+are cast at its boundary and the pose comes back in the caller's dtype.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from sdvo_tpu_torch.geometry.se3 import SE3
 from sdvo_tpu_torch.ops.lm_align import lm_align_level
 from sdvo_tpu_torch.ops.window_sampler import sample_windows_grad, window_gather
+from sdvo_tpu_torch.optim.optimizer import LMSettings
 
 
 class AlignFeatures(NamedTuple):
@@ -30,21 +40,33 @@ class AlignFeatures(NamedTuple):
 
 
 class SparseImageAlign:
-    """Coarse-to-fine sparse alignment over precomputed reference tables."""
+    """Coarse-to-fine sparse photometric alignment, K1 once a level."""
+
+    DEFAULT_SETTINGS = LMSettings(mad="hist", min_rel_decrease=1e-3, max_iterations=12)
 
     def __init__(self, patch_size: int = 5, min_level: int = 0, max_level: int = 3,
-                 max_iterations: int = 10, min_rel_decrease: float = 2e-3,
-                 window: int = 16, level_taper: int = 2):
+                 settings: LMSettings = DEFAULT_SETTINGS, use_esm: bool = True, window: int = 16,
+                 level_taper: int = 0):
         self.patch_size = int(patch_size)
         self.min_level = int(min_level)
         self.max_level = int(max_level)
-        self.max_iterations = int(max_iterations)
-        self.min_rel_decrease = float(min_rel_decrease)
+        self.settings = settings
+        self.use_esm = bool(use_esm)
         self.window = int(window)
         self.level_taper = int(level_taper)
 
     def level_iterations(self, level: int) -> int:
-        return max(4, self.max_iterations - self.level_taper * (self.max_level - level))
+        return max(4, self.settings.max_iterations - self.level_taper * (self.max_level - level))
+
+    def _run_level(self, T: SE3, win_cur, patches, J, feats: "AlignFeatures", org_c, visible,
+                   fx, fy, cx, cy, level: int):
+        scale = 1.0 / (1 << level)
+        f32 = torch.float32
+        return lm_align_level(
+            T, win_cur.to(f32), patches.to(f32), J.to(f32), feats.points_ref.to(f32),
+            org_c.to(f32), visible, fx * scale, fy * scale, cx * scale, cy * scale,
+            patch=self.patch_size, max_iters=self.level_iterations(level),
+            min_rel_decrease=self.settings.min_rel_decrease)
 
     def _jac_rows(self, feats: AlignFeatures, fx: float, fy: float, level: int):
         scale = 1.0 / (1 << level)
@@ -94,13 +116,49 @@ class SparseImageAlign:
         rmse = torch.zeros((), dtype=feats.points_ref.dtype, device=feats.points_ref.device)
         for level in range(self.max_level, self.min_level - 1, -1):
             li = level - self.min_level
-            scale = 1.0 / (1 << level)
             uv0 = self._project_level(T, feats, fx, fy, cx, cy, level)
             win_cur, org_c, ok_oc = window_gather(cur_pyramid[level], uv0, self.window)
-            T, rmse, _ = lm_align_level(
-                T, win_cur, t_patches[li], t_J[li], feats.points_ref, org_c, t_vis[li] & ok_oc,
-                fx * scale, fy * scale, cx * scale, cy * scale,
-                patch=self.patch_size, max_iters=self.level_iterations(level),
-                min_rel_decrease=self.min_rel_decrease,
-            )
+            T, rmse, _ = self._run_level(T, win_cur, t_patches[li], t_J[li], feats, org_c,
+                                         t_vis[li] & ok_oc, fx, fy, cx, cy, level)
         return T, rmse
+
+    def align(self, T_init: SE3, host_pyramid: Sequence[torch.Tensor],
+              cur_pyramid: Sequence[torch.Tensor], feats: AlignFeatures,
+              fx: float, fy: float, cx: float, cy: float
+              ) -> Tuple[SE3, torch.Tensor, torch.Tensor]:
+        """Coarse-to-fine alignment against the host images themselves.
+        ``host_pyramid[level]`` is (n_hosts, H_l, W_l); each feature takes its
+        reference window from the host ``feats.host_idx`` names. With
+        ``use_esm`` the Jacobian averages the reference gradients with the
+        current image's, sampled once at the level's first projection.
+        Returns (T_cur_ref, rmse of the finest level, status 0)."""
+        P = self.patch_size
+        N = feats.uv_host.shape[0]
+        dev = feats.points_ref.device
+        T = T_init
+        rmse = torch.zeros((), dtype=feats.points_ref.dtype, device=dev)
+        rows = torch.arange(N, device=dev)
+        host = feats.host_idx.to(torch.int64)
+        for level in range(self.max_level, self.min_level - 1, -1):
+            uv_ref_l = feats.uv_host * (1.0 / (1 << level))
+            refs = [window_gather(im, uv_ref_l, self.window) for im in host_pyramid[level]]
+            win_ref = torch.stack([r[0] for r in refs])[host, rows]
+            org_ref = torch.stack([r[1] for r in refs])[host, rows]
+            patches, gx_r, gy_r, ok_r = sample_windows_grad(win_ref, uv_ref_l - org_ref, P)
+            visible = feats.valid & refs[0][2] & ok_r
+            row_u, row_v = self._jac_rows(feats, fx, fy, level)
+
+            uv0 = self._project_level(T, feats, fx, fy, cx, cy, level)
+            win_cur, org_c, ok_oc = window_gather(cur_pyramid[level], uv0, self.window)
+            visible = visible & ok_oc
+            patches = torch.where(visible[:, None], patches, torch.zeros_like(patches))
+            if self.use_esm:
+                _, gcx, gcy, _ = sample_windows_grad(win_cur, uv0 - org_c, P)
+                gx, gy = 0.5 * (gx_r + gcx), 0.5 * (gy_r + gcy)
+            else:
+                gx, gy = gx_r, gy_r
+            J = gx[..., None] * row_u[:, None, :] + gy[..., None] * row_v[:, None, :]
+            J = torch.where(visible[:, None, None], J, torch.zeros_like(J))
+            T, rmse, _ = self._run_level(T, win_cur, patches, J, feats, org_c, visible,
+                                         fx, fy, cx, cy, level)
+        return T, rmse, torch.zeros((), dtype=torch.int32, device=dev)

@@ -1,25 +1,34 @@
 """Windowed bundle adjustment via the Schur complement — port of
-``sdvo_tpu.ba.bundle_adjustment`` (``BAObservations``, ``BASettings``,
-``build_point_table``, ``local_ba``, ``two_view_ba``).
+``sdvo_tpu.ba.bundle_adjustment``: ``BAObservations``, ``BASettings``,
+``build_point_table``, ``local_ba`` (with ``const_pt`` and the structure
+pre-solve), ``two_view_ba``, ``three_view_ba``, ``one_frame_with_scene``,
+``optimize_scene``, and the single-frame optimizers ``optimize_pose``,
+``pose_covariance`` and ``optimize_structure``.
 
 Per-observation blocks accumulate into the camera, landmark and per-point
 camera-block matrices with ``index_add`` — the natural GPU form of the JAX
 package's one-hot matmul fill-in. The reduced (6K × 6K) camera system is
 solved by a dense Cholesky; fixed cameras are pinned by identity rows. The
-optional structure pre-solve of the reference (off by default) is not
-ported, and the solver takes no point table (the reference no longer reads
-it).
+solver takes no point table (the reference no longer reads it); only
+``optimize_structure`` does. Everything runs in the dtype and on the device
+of ``points``: the host ``System`` hands float64 windows to ``local_ba`` on
+the card.
+
+``optimize_pose`` runs the portable LM of ``optim.optimizer``, as the
+reference does on every backend; the device path's polish is the K3 kernel
+(``ops.pose_refine``), another function.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from sdvo_tpu_torch.geometry import se3
 from sdvo_tpu_torch.geometry.se3 import SE3
+from sdvo_tpu_torch.optim.optimizer import LMSettings, optimize_lm
 
 
 class BAObservations(NamedTuple):
@@ -37,6 +46,7 @@ class BASettings(NamedTuple):
     lambda_down: float = 0.1
     chi2_prune: float = 5.991
     min_rel_decrease: float = 0.0  # 0 = run all iterations
+    structure_presolve: int = 0  # structure-only Gauss-Newton passes before the joint solve
 
 
 def build_point_table(pt_idx: np.ndarray, valid: np.ndarray, num_points: int, max_obs: int) -> np.ndarray:
@@ -76,9 +86,12 @@ def _huber_w(r: torch.Tensor, delta: float) -> torch.Tensor:
 
 def local_ba(poses: SE3, points: torch.Tensor, obs: BAObservations, fixed_cam: torch.Tensor,
              fixed_pt: torch.Tensor, fx: float, fy: float, cx: float, cy: float,
-             settings: BASettings = BASettings()) -> Tuple[SE3, torch.Tensor, torch.Tensor, torch.Tensor]:
+             settings: BASettings = BASettings(), const_pt: Optional[torch.Tensor] = None
+             ) -> Tuple[SE3, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Schur-complement LM over a keyframe window. Returns (poses, points,
-    chi2 per observation, total chi2)."""
+    chi2 per observation, total chi2). ``fixed_pt`` removes a point's
+    observations; ``const_pt`` keeps them as pose constraints and freezes the
+    point's position."""
     K = poses.translation.shape[0]
     P = points.shape[0]
     M = obs.cam_idx.shape[0]
@@ -101,7 +114,37 @@ def local_ba(poses: SE3, points: torch.Tensor, obs: BAObservations, fixed_cam: t
     def chi2_of(r, w, ok):
         return torch.where(ok, w * (r * r).sum(-1), torch.zeros_like(w)).sum()
 
+    def jac_point(p_cam, R, z_safe):
+        iz = 1.0 / z_safe
+        iz2 = iz * iz
+        zero = torch.zeros_like(iz)
+        Jpix = torch.stack([torch.stack([fx * iz, zero, -fx * p_cam[:, 0] * iz2], -1),
+                            torch.stack([zero, fy * iz, -fy * p_cam[:, 1] * iz2], -1)], -2)  # (M, 2, 3)
+        return Jpix, Jpix @ R
+
+    def chi2_per_point(r, w, ok):
+        return torch.zeros((P,), dtype=dtype, device=dev).index_add(
+            0, pid, torch.where(ok, w * (r * r).sum(-1), torch.zeros_like(w)))
+
+    frozen_pt = fixed_pt if const_pt is None else (fixed_pt | const_pt)
     R_c, t_c, pts = poses.rotation, poses.translation, points
+    for _ in range(settings.structure_presolve):
+        # one Gauss-Newton step per point with the poses held, kept where the
+        # point's own chi² went down
+        r, ok, p_cam, R, z_safe = residuals(R_c, t_c, pts)
+        okf = ok.to(dtype)
+        w = _huber_w(r, settings.huber_delta) * okf
+        Jp = jac_point(p_cam, R, z_safe)[1] * okf[:, None, None]
+        JpW = Jp * w[:, None, None]
+        Hpp = torch.zeros((P, 3, 3), dtype=dtype, device=dev).index_add(
+            0, pid, torch.einsum("mri,mrj->mij", JpW, Jp))
+        gp = torch.zeros((P, 3), dtype=dtype, device=dev).index_add(0, pid, torch.einsum("mri,mr->mi", JpW, r))
+        dp = (_inv3x3(Hpp + 1e-4 * eye3) @ gp[..., None])[..., 0]
+        pts_new = pts - torch.where(frozen_pt[:, None], torch.zeros_like(dp), dp)
+        r_n, ok_n, _, _, _ = residuals(R_c, t_c, pts_new)
+        w_n = _huber_w(r_n, settings.huber_delta) * ok_n.to(dtype)
+        keep = chi2_per_point(r_n, w_n, ok_n) < chi2_per_point(r, w, ok)
+        pts = torch.where(keep[:, None], pts_new, pts)
     r0, ok0, _, _, _ = residuals(R_c, t_c, pts)
     chi = chi2_of(r0, _huber_w(r0, settings.huber_delta), ok0)
     lam = torch.tensor(settings.init_lambda, dtype=dtype, device=dev)
@@ -113,15 +156,11 @@ def local_ba(poses: SE3, points: torch.Tensor, obs: BAObservations, fixed_cam: t
         r, ok, p_cam, R, z_safe = residuals(R_c, t_c, pts)
         okf = ok.to(dtype)
         w = _huber_w(r, settings.huber_delta) * okf
-        x, y = p_cam[:, 0], p_cam[:, 1]
-        iz = 1.0 / z_safe
-        iz2 = iz * iz
-        zero = torch.zeros_like(x)
-        Jpix = torch.stack([torch.stack([fx * iz, zero, -fx * x * iz2], -1),
-                            torch.stack([zero, fy * iz, -fy * y * iz2], -1)], -2)  # (M, 2, 3)
+        Jpix, Jp = jac_point(p_cam, R, z_safe)
         dpdxi = torch.cat([eye3.expand(M, 3, 3), -se3.hat(p_cam)], -1)  # (M, 3, 6)
         Jc = Jpix @ dpdxi * (free_c[cam] * okf)[:, None, None]
-        Jp = Jpix @ R * okf[:, None, None]
+        free_p = okf if const_pt is None else okf * (~const_pt)[pid].to(dtype)
+        Jp = Jp * free_p[:, None, None]
         JcW = Jc * w[:, None, None]
         JpW = Jp * w[:, None, None]
         Hcc = torch.zeros((K, 6, 6), dtype=dtype, device=dev).index_add(
@@ -153,7 +192,7 @@ def local_ba(poses: SE3, points: torch.Tensor, obs: BAObservations, fixed_cam: t
         dc = torch.where(ok_chol, dc, torch.zeros_like(dc)).reshape(K, 6)
         WTdc = (Wr.T @ dc.reshape(K * 6)).reshape(P, 3)
         dp = (Hpp_inv @ (gp - WTdc)[..., None])[..., 0]
-        dp = torch.where(fixed_pt[:, None], torch.zeros_like(dp), dp)
+        dp = torch.where(frozen_pt[:, None], torch.zeros_like(dp), dp)
         delta = se3.exp(-dc)
         R_new = delta.rotation @ R_c
         t_new = torch.einsum("kij,kj->ki", delta.rotation, t_c) + delta.translation
@@ -179,3 +218,119 @@ def two_view_ba(poses: SE3, points, obs: BAObservations, fixed_pt, fx, fy, cx, c
     """First camera fixed, second camera and the points free."""
     fixed_cam = torch.tensor([True, False], device=points.device)
     return local_ba(poses, points, obs, fixed_cam, fixed_pt, fx, fy, cx, cy, settings=settings)
+
+
+def three_view_ba(poses: SE3, points, obs: BAObservations, fx, fy, cx, cy,
+                  settings: BASettings = BASettings()):
+    """The two previous keyframes fixed, the newest frame free, the landmarks
+    held constant: a multi-view pose polish."""
+    if poses.translation.shape[0] != 3:
+        raise ValueError("three_view_ba takes (the keyframe before last, the last keyframe, the frame)")
+    P = points.shape[0]
+    dev = points.device
+    return local_ba(poses, points, obs, torch.tensor([True, True, False], device=dev),
+                    torch.zeros((P,), dtype=torch.bool, device=dev), fx, fy, cx, cy, settings=settings,
+                    const_pt=torch.ones((P,), dtype=torch.bool, device=dev))
+
+
+def one_frame_with_scene(poses: SE3, points, obs: BAObservations, frame_idx: int, fx, fy, cx, cy,
+                         settings: BASettings = BASettings()):
+    """One frame and the scene points it observes are free; every other
+    keyframe joins as a fixed pose constraint."""
+    K = poses.translation.shape[0]
+    dev = points.device
+    return local_ba(poses, points, obs, torch.arange(K, device=dev) != frame_idx,
+                    torch.zeros((points.shape[0],), dtype=torch.bool, device=dev), fx, fy, cx, cy,
+                    settings=settings)
+
+
+def optimize_scene(poses: SE3, points, obs: BAObservations, fx, fy, cx, cy,
+                   settings: BASettings = BASettings()):
+    """Structure only: every observing frame fixed, all landmarks free."""
+    K = poses.translation.shape[0]
+    dev = points.device
+    return local_ba(poses, points, obs, torch.ones((K,), dtype=torch.bool, device=dev),
+                    torch.zeros((points.shape[0],), dtype=torch.bool, device=dev), fx, fy, cx, cy,
+                    settings=settings)
+
+
+# --- the single-frame optimizers ------------------------------------------------
+def _bearing_jacobian(T: SE3, points: torch.Tensor):
+    """Unit bearing f of T·p and d f / d xi (N, 3, 6) for the camera-frame
+    perturbation exp(xi)·p_cam: (I − f fᵀ)/|p| · [I | −hat(p)]."""
+    p_cam = T.apply(points)
+    norm = torch.linalg.norm(p_cam, dim=-1, keepdim=True)
+    f = p_cam / torch.clamp(norm, min=1e-12)
+    eye = torch.eye(3, dtype=points.dtype, device=points.device).expand(p_cam.shape[:-1] + (3, 3))
+    dfdp = (eye - f[..., :, None] * f[..., None, :]) / torch.clamp(norm[..., None], min=1e-12)
+    return f, dfdp @ torch.cat([eye, -se3.hat(p_cam)], -1)
+
+
+def optimize_pose(T0: SE3, points: torch.Tensor, bearings: torch.Tensor, valid: torch.Tensor,
+                  settings=None):
+    """Pose-only refinement with bearing-vector residuals (three an
+    observation), through ``optimize_lm``. Returns (T, rmse, status)."""
+    settings = settings or LMSettings(max_iterations=15)
+    vis = valid[:, None].expand(points.shape[0], 3).reshape(-1)
+
+    def residual_fn(T):
+        r = (_bearing_jacobian(T, points)[0] - bearings).reshape(-1)
+        return torch.where(vis, r, torch.zeros_like(r)), vis
+
+    def jacobian_fn(T):
+        return _bearing_jacobian(T, points)[1].reshape(-1, 6)
+
+    def update_fn(T, dx):
+        d = se3.exp(-dx)
+        return SE3(d.rotation @ T.rotation, d.rotation @ T.translation + d.translation)
+
+    return optimize_lm(T0, residual_fn, jacobian_fn, update_fn, settings)
+
+
+def pose_covariance(T: SE3, points: torch.Tensor, bearings: torch.Tensor, valid: torch.Tensor):
+    """6×6 covariance of the bearing-residual pose solve: σ²·(JᵀJ)⁻¹ with σ²
+    the residual variance."""
+    dtype = points.dtype
+    vf = valid.to(dtype)
+    f, J = _bearing_jacobian(T, points)
+    Jf = (J * vf[:, None, None]).reshape(-1, 6)
+    H = Jf.T @ Jf
+    r = ((f - bearings) * vf[:, None]).reshape(-1)
+    n = torch.clamp(vf.sum() * 3.0 - 6.0, min=1.0)
+    sigma2 = (r * r).sum() / n
+    return sigma2 * torch.linalg.inv(H + 1e-12 * torch.eye(6, dtype=dtype, device=points.device))
+
+
+def optimize_structure(points: torch.Tensor, poses: SE3, obs: BAObservations, point_table,
+                       fx, fy, cx, cy, iterations: int = 5) -> torch.Tensor:
+    """Structure-only refinement: Gauss-Newton per point over the observations
+    its ``point_table`` row (P, M_max, padded −1) lists, all points at once."""
+    dtype = points.dtype
+    dev = points.device
+    table = torch.as_tensor(point_table, device=dev).to(torch.int64)
+    t_ok = table >= 0
+    t_idx = torch.clamp(table, min=0)
+    cam_of = torch.where(t_ok, obs.cam_idx.to(torch.int64)[t_idx], torch.zeros_like(t_idx))
+    uv_of = obs.uv[t_idx]  # (P, Mmax, 2)
+    R_of = poses.rotation[cam_of]  # (P, Mmax, 3, 3)
+    t_of = poses.translation[cam_of]
+    has_obs = t_ok.any(-1)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    pts = points
+    for _ in range(iterations):
+        p_cam = torch.einsum("pmij,pj->pmi", R_of, pts) + t_of
+        z = torch.where(torch.abs(p_cam[..., 2]) < 1e-9, torch.full_like(p_cam[..., 2], 1e-9), p_cam[..., 2])
+        r = torch.stack([fx * p_cam[..., 0] / z + cx, fy * p_cam[..., 1] / z + cy], -1) - uv_of
+        ok = t_ok & (p_cam[..., 2] > 1e-6)
+        r = torch.where(ok[..., None], r, torch.zeros_like(r))
+        iz = 1.0 / z
+        iz2 = iz * iz
+        zero = torch.zeros_like(z)
+        Jpix = torch.stack([torch.stack([fx * iz, zero, -fx * p_cam[..., 0] * iz2], -1),
+                            torch.stack([zero, fy * iz, -fy * p_cam[..., 1] * iz2], -1)], -2)
+        Jp = (Jpix @ R_of) * ok[..., None, None].to(dtype)
+        H = torch.einsum("pmri,pmrj->pij", Jp, Jp) + 1e-8 * eye3
+        g = torch.einsum("pmri,pmr->pi", Jp, r)
+        dp = torch.einsum("pij,pj->pi", _inv3x3(H), g)
+        pts = pts - torch.where(has_obs[:, None], dp, torch.zeros_like(dp))
+    return pts

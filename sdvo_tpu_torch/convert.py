@@ -1,5 +1,5 @@
-"""State carried across implementations: the reference's ``VOState`` ↔ the
-port's.
+"""State carried across implementations: the reference's ``VOState`` and map
+arena ↔ the port's.
 
 ``vo_state_from_numpy`` takes a ``VOState`` of the JAX package after
 ``jax.device_get`` — a nested NamedTuple of numpy arrays — and builds the
@@ -7,6 +7,11 @@ port's ``VOState`` field by field on ``device``, keeping every dtype. The
 match is by NamedTuple class name and field name, so nothing of the JAX
 package is imported. ``to_numpy`` goes the other way: the port's state as
 the same nested NamedTuples holding numpy arrays.
+
+``arena_to_numpy`` reads a ``MapArena`` of either package (they name their
+arrays alike) into a dict of copies under the keys a checkpoint uses;
+``arena_from_numpy`` builds the port's ``MapArena`` from such a dict. The
+checkpoint file itself is common to both packages.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from sdvo_tpu_torch.align.image_alignment import AlignFeatures
 from sdvo_tpu_torch.depth.filter import FilterBank
 from sdvo_tpu_torch.device import resolve_device
 from sdvo_tpu_torch.geometry.se3 import SE3
+from sdvo_tpu_torch.mapping.arena import ARENA_KEYS, MapArena
 from sdvo_tpu_torch.mapping.device_map import DeviceMap
 from sdvo_tpu_torch.pipeline.device_system import DeviceFilters, TrackRef, VOState
 
@@ -45,3 +51,20 @@ def to_numpy(tree):
     if isinstance(tree, (tuple, list)):
         return tuple(to_numpy(x) for x in tree)
     return tree.detach().cpu().numpy()
+
+
+def arena_to_numpy(arena) -> dict:
+    """The arrays of a ``MapArena`` (the port's or the reference's) as a dict
+    of numpy copies, keyed as in a checkpoint."""
+    return {k: np.array(getattr(arena, k)) for k in ARENA_KEYS}
+
+
+def arena_from_numpy(arrays: dict) -> MapArena:
+    """The port's ``MapArena`` holding copies of ``arrays`` (capacities from
+    their shapes; the keyframe pyramids stay empty)."""
+    K, F, P2 = arrays["feat_patch"].shape
+    arena = MapArena(max_keyframes=K, max_points=arrays["pt_valid"].shape[0],
+                     max_features_per_kf=F, align_patch_size=int(round(P2 ** 0.5)))
+    for k in ARENA_KEYS:
+        setattr(arena, k, int(arrays[k]) if k == "kf_counter" else np.array(arrays[k]))
+    return arena

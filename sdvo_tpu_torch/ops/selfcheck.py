@@ -60,9 +60,11 @@ def plane_pair(seed: int, tau, width: int, height: int, tex_size: int = 1024):
 
 
 def lm_problems(device, n: int = 256, width: int = 1241, height: int = 376, levels: int = 4,
-                seed: int = 0, patch: int = 5):
+                seed: int = 0, patch: int = 5, iterations: int = None):
     """K1 inputs for every pyramid level: a list of (args, max_iters), args
-    in ``lm_align_level`` order after ``T_init``."""
+    in ``lm_align_level`` order after ``T_init``. ``max_iters`` follows the
+    device path's taper (10, 8, 6, 4 from the coarsest level down) unless
+    ``iterations`` names one count for every level, as the host path does."""
     ref, cur, cam = plane_pair(seed, [0.02, -0.01, 0.015, 0.002, -0.003, 0.004], width, height,
                                tex_size=2048)
     pr = build_pyramid(torch.from_numpy(ref), levels)
@@ -93,7 +95,7 @@ def lm_problems(device, n: int = 256, width: int = 1241, height: int = 376, leve
         vis = ok_r & ok_s & ok_c
         J = torch.where(vis[:, None, None], J, torch.zeros_like(J))
         args = [t.contiguous().to(device) for t in (win_c, patches, J, torch.from_numpy(pts), org_c, vis)]
-        out.append((args + [fx, fy, cx, cy], max(4, 10 - 2 * (levels - 1 - lv))))
+        out.append((args + [fx, fy, cx, cy], iterations or max(4, 10 - 2 * (levels - 1 - lv))))
     return out
 
 
@@ -346,15 +348,23 @@ _OPS = {  # base name: (module, wrapper, plain version, outputs compared)
 }
 
 
+HOST_LM = "lm_align_level[host-"  # the names of K1's problems at the host path's shape
+
+
 def kernel_problems(device, sizes: Dict[str, int] = None) -> List[Tuple[str, tuple, dict]]:
-    """(name, arguments, keyword arguments) of each K1 level, K2, K3 and K4,
-    for the wrapper, its plain version and its ``kernel_launcher`` alike."""
+    """(name, arguments, keyword arguments) of each K1 level at the device
+    path's shape (256 features, tapered iterations) and at the host path's
+    (``System._sparse_align``: 512 features over two host images, 12
+    iterations a level, exit at 1e-3), K2, K3 and K4, for the wrapper, its
+    plain version and its ``kernel_launcher`` alike."""
     sizes = sizes or {}
     T0 = SE3.identity(device=device)
     problems = []
     for lv, (args, its) in enumerate(lm_problems(device, n=sizes.get("lm", 256))):
         problems.append((f"lm_align_level[L{lv}]", (T0, *args),
                          dict(max_iters=its, min_rel_decrease=2e-3)))
+    for lv, (args, its) in enumerate(lm_problems(device, n=sizes.get("lm_host", 512), iterations=12)):
+        problems.append((f"{HOST_LM}L{lv}]", (T0, *args), dict(max_iters=its, min_rel_decrease=1e-3)))
     problems.append(("fa_align_batch", tuple(fa_problem(device, n=sizes.get("fa", 150))), {}))
     problems.append(("pose_refine", (T0, *pose_problem(device, n=sizes.get("pose", 150))[0]), {}))
     problems.append(("depth_scores",

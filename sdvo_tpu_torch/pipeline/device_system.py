@@ -13,13 +13,12 @@ Per frame the four hand-written kernels run: K1 four times (one per
 pyramid level, ``align_precomputed``), K2 once (``reproject_device``), K3
 once (the pose polish) and K4 once (``update_filters``).
 
-``DeviceSystem`` is the host wrapper. Its two-view bootstrap ports the
-first- and second-frame handling of ``sdvo_tpu.pipeline.system.System``
-(detection, ``bootstrap_two_view``, point and feature insertion, filter
-seeding) and writes the initial ``VOState`` directly — what the reference's
-``DeviceSystem._pack`` builds from the host arena. Relocalization lives in
-the host ``System``, which is not ported yet: when tracking fails inside a
-chunk, ``DeviceSystem`` raises ``NotImplementedError``.
+``DeviceSystem`` is the host wrapper. It holds a host ``System``
+(``pipeline.system``): the two-view bootstrap runs through it and ``_pack``
+builds the ``VOState`` from its arena; when tracking fails inside a chunk,
+``to_host`` unpacks the state and the host relocalizes frame by frame until
+``_pack`` puts the state back on the device. ``save_checkpoint`` goes
+through the host too.
 """
 
 from __future__ import annotations
@@ -35,11 +34,11 @@ from sdvo_tpu_torch.config import Config
 from sdvo_tpu_torch.dataio.evaluate import write_kitti_poses
 from sdvo_tpu_torch.depth.filter import FilterBank, init_filters, update_filters
 from sdvo_tpu_torch.device import resolve_device
-from sdvo_tpu_torch.features.detection import FeatureSelection, detect_gradient_by_value
+from sdvo_tpu_torch.features.detection import detect_gradient_by_value
 from sdvo_tpu_torch.geometry.camera import PinholeCamera
 from sdvo_tpu_torch.geometry.essential import topk_stable
 from sdvo_tpu_torch.geometry.se3 import SE3
-from sdvo_tpu_torch.image.interp import extract_patches, padded_patch_and_gradients
+from sdvo_tpu_torch.image.interp import padded_patch_and_gradients
 from sdvo_tpu_torch.image.pyramid import build_pyramid
 from sdvo_tpu_torch.mapping.device_map import (
     DeviceMap,
@@ -50,8 +49,9 @@ from sdvo_tpu_torch.mapping.device_map import (
     reproject_device,
 )
 from sdvo_tpu_torch.ops.pose_refine import pose_refine
+from sdvo_tpu_torch.optim.optimizer import tree_where
 from sdvo_tpu_torch.ops.window_sampler import sample_windows, sample_windows_grad, window_gather
-from sdvo_tpu_torch.pipeline.bootstrap import bootstrap_two_view
+from sdvo_tpu_torch.pipeline.system import FrameResult, System, SystemStatus
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -121,16 +121,6 @@ class SuperstepConfig(NamedTuple):
     grad_threshold: float
 
 
-def tree_where(cond: torch.Tensor, old, new):
-    """``torch.where(cond, old, new)`` over matching nested NamedTuples."""
-    if isinstance(old, torch.Tensor):
-        return torch.where(cond, old, new)
-    if isinstance(old, tuple):
-        vals = [tree_where(cond, o, n) for o, n in zip(old, new)]
-        return type(old)(*vals) if hasattr(old, "_fields") else tuple(vals)
-    return old
-
-
 def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """``x[i]`` for a 0-d index tensor without reading it on the host."""
     return x.index_select(0, i.reshape(1).to(torch.int64))[0]
@@ -171,9 +161,11 @@ class DeviceVO:
         self.cam = cam
         self.cfg = cfg
         self.dtype = dtype
-        self.aligner = SparseImageAlign(patch_size=cfg.patch_align, min_level=0,
-                                        max_level=cfg.levels - 1, max_iterations=10,
-                                        min_rel_decrease=2e-3, level_taper=2)
+        self.aligner = SparseImageAlign(
+            patch_size=cfg.patch_align, min_level=0, max_level=cfg.levels - 1,
+            settings=SparseImageAlign.DEFAULT_SETTINGS._replace(max_iterations=10,
+                                                                min_rel_decrease=2e-3),
+            level_taper=2)
 
     # ------------------------------------------------------------ frame step
     def _frame_step(self, state: VOState, image: torch.Tensor, is_kf: bool):
@@ -491,29 +483,33 @@ class DeviceVO:
 
 
 # ===========================================================================
-# Host wrapper: two-view bootstrap, then the device steady state
+# Host wrapper: bootstrap on the host System, steady state on the device
 # ===========================================================================
 
 
-class _Keyframe:
-    """Host record of a bootstrap keyframe."""
-
-    def __init__(self, frame_id: int, pyramid, pose_wc: np.ndarray, uv: np.ndarray):
-        self.frame_id = frame_id
-        self.pyramid = pyramid
-        self.pose_wc = pose_wc
-        self.uv = uv
+def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
+    out = np.zeros((n,) + a.shape[1:], a.dtype)
+    out[: min(len(a), n)] = a[:n]
+    return out
 
 
 class DeviceSystem:
-    """Host bootstrap + device-resident steady state (``add_image`` /
-    ``finish`` / ``trajectory`` / ``write_poses``).
+    """VO front end with a device-resident steady state (``add_image`` /
+    ``finish`` / ``trajectory`` / ``write_poses`` / ``save_checkpoint``).
 
-    ``ransac_uniforms`` (S, N), when given, replace the RANSAC draws of the
-    first bootstrap attempt (N = the first frame's detections); later draws
-    come from a ``torch.Generator`` seeded with ``seed``.
+    The bootstrap (the first two keyframes) runs through the host ``System``
+    (``self.host``) and ``_pack`` puts its arena, filters and tracking
+    reference on the device. From then on frames are buffered and consumed
+    ``supersteps_per_chunk × keyframe_every_n`` at a time by one chunk.
+    ``finish()`` flushes the buffer (the tail superstep is padded by repeating
+    the last frame; padded outputs are dropped). A tracking failure inside a
+    chunk freezes the device state for the rest of the chunk; then
+    ``_relocalize`` unpacks to the host (``to_host``), which steps frame by
+    frame in ``RELOCALIZATION`` until tracking is healthy and the reference
+    frame is a keyframe again, and ``_pack`` re-enters the device path.
 
-    ``device`` defaults to the CUDA card and raises where there is none;
+    ``ransac_uniforms`` and ``seed`` go to the host ``System``. ``device``
+    defaults to the CUDA card and raises where there is none;
     ``device="cpu"`` asks for the CPU (the kernels' plain versions).
     """
 
@@ -523,18 +519,12 @@ class DeviceSystem:
         self.config = config
         self.device = resolve_device(device)
         cfg_a = config.algorithm
-        cfg_i = config.initialization
         if config.compute_dtype != "float32":
             raise ValueError("the port's device path is float32")
         if cfg_a.max_reprojection_matches + max_promote > cfg_a.max_features_per_frame:
             raise ValueError("alignment feature set must hold matches + promoted candidates")
-        W, H = config.camera.img_width, config.camera.img_height
-        if camera is None:
-            camera = PinholeCamera.create(721.5377, 721.5377, 609.5593, 172.854, W, H)
-        else:
-            camera = PinholeCamera.create(camera.fx, camera.fy, camera.cx, camera.cy,
-                                          camera.width, camera.height)
-        self.camera = camera
+        self.host = System(config, camera, seed, device=self.device, ransac_uniforms=ransac_uniforms)
+        self.camera = self.host.camera
         self.scfg = SuperstepConfig(
             period=cfg_a.keyframe_every_n, levels=cfg_a.max_level_image_pyramid + 1,
             patch_align=cfg_a.patch_size_image_alignment, patch_fa=cfg_a.patch_size_feature_alignment,
@@ -545,189 +535,161 @@ class DeviceSystem:
             ba_iterations=ba_iterations, epipolar_steps=cfg_a.epipolar_search_steps,
             staleness=cfg_a.filter_staleness_keyframes,
             convergence_factor=cfg_a.filter_convergence_sigma_factor,
-            grad_threshold=float(cfg_i.threshold_gradient_magnitude),
+            grad_threshold=float(config.initialization.threshold_gradient_magnitude),
         )
-        self.vo = DeviceVO(camera, self.scfg)
+        self.vo = DeviceVO(self.camera, self.scfg)
         self.supersteps_per_chunk = supersteps_per_chunk
-        self.selector = FeatureSelection(camera.width, camera.height, cfg_a.cell_pixel_size)
-        self.generator = torch.Generator().manual_seed(seed)
-        self.ransac_uniforms = ransac_uniforms
         self.state: Optional[VOState] = None
         self.trajectory: List[Optional[np.ndarray]] = []
         self.metrics: List[Dict] = []
         self._buffer: List[np.ndarray] = []
-        self._first: Optional[_Keyframe] = None
-        self.frame_count = 0
+        self.n_relocalizations = 0
 
     @property
     def bootstrapped(self) -> bool:
         return self.state is not None
 
-    # ------------------------------------------------------------- bootstrap
-    def _emit(self, T: Optional[np.ndarray], result: str, **extra):
-        self.trajectory.append(T)
-        self.metrics.append({"frame": len(self.trajectory) - 1, "result": result, **extra})
-
-    def _detect(self, pyr) -> np.ndarray:
-        cfg_i = self.config.initialization
-        feats = self.selector.detect_with_ssc(pyr.base_gradient.cpu().numpy(),
-                                              cfg_i.threshold_gradient_magnitude,
-                                              cfg_i.desired_detected_points)
-        return feats.uv
-
-    def _bootstrap_frame(self, image: np.ndarray):
-        cfg_i = self.config.initialization
-        frame_id = self.frame_count
-        self.frame_count += 1
-        img = torch.as_tensor(np.asarray(image, np.float32), device=self.device)
-        pyr = build_pyramid(img, self.scfg.levels)
-        if self._first is None:
-            self.selector.reset_grid()
-            uv = self._detect(pyr)
-            if len(uv) < cfg_i.min_detected_points:
-                return self._emit(None, "FAILED", n_features=len(uv))
-            self._first = _Keyframe(frame_id, pyr, np.eye(4), uv.astype(np.float64))
-            return self._emit(np.eye(4), "KEYFRAME", n_features=len(uv))
-
-        cpu = torch.device("cpu")
-        pyr_cpu = lambda p: type(p)(tuple(x.to(cpu) for x in p.images), ())  # noqa: E731
-        uniforms, self.ransac_uniforms = self.ransac_uniforms, None
-        res = bootstrap_two_view(
-            pyr_cpu(self._first.pyramid), pyr_cpu(pyr), torch.as_tensor(self._first.uv), self.camera,
-            uniforms=None if uniforms is None else torch.tensor(np.asarray(uniforms)),
-            generator=self.generator, min_disparity=cfg_i.disparity_threshold,
-            min_inliers=cfg_i.min_detected_points // 2, map_scale_factor=cfg_i.map_scale_factor,
-            klt_window=cfg_i.patch_size_optical_flow, ransac_hypotheses=cfg_i.ransac_hypotheses,
-            ransac_threshold_px=cfg_i.ransac_threshold_px)
-        if not res.success:
-            return self._emit(None, "FAILED", reason=res.reason)
-        self.state = self._initial_state(_Keyframe(frame_id, pyr, res.T_cur_ref, res.uv_cur), res)
-        self._emit(res.T_cur_ref.copy(), "KEYFRAME", n_features=len(res.uv_cur))
-
-    def _initial_state(self, second: _Keyframe, res) -> VOState:
-        """The VOState right after the two-view bootstrap: keyframe slots 0
-        (first frame) and 1 (second), the triangulated points, both feature
-        tables with their cached patches, the seeded filter bank and the
-        tracking reference on the second keyframe."""
-        cfg_a = self.config.algorithm
-        cfg_i = self.config.initialization
+    # ----------------------------------------------------------------- pack
+    def _pack(self):
+        """Host arena + filters + tracking reference → the device ``VOState``."""
+        sys_ = self.host
+        a = sys_.arena
         dev = self.device
         f32, i32 = torch.float32, torch.int32
-        cam = self.camera
-        first = self._first
-        K = cfg_a.max_keyframes + 3
-        F = cfg_a.max_features_per_frame
-        P = cfg_a.max_points
-        C = cfg_a.max_filters
-        P2 = cfg_a.patch_size_feature_alignment ** 2
-        H, W = second.pyramid.base_image.shape
+        K, F, P = a.max_keyframes, a.max_features_per_kf, a.max_points
+        P2 = a.align_patch_size ** 2
 
-        # points: slots 0..n-1 (the arena's first free slots), all GOOD
-        n_pts = min(len(res.points_w), P)
-        pt_pos = np.zeros((P, 3))
-        pt_pos[:n_pts] = res.points_w[:n_pts]
-        pt_valid = np.zeros(P, bool)
-        pt_valid[:n_pts] = True
-        pt_type = np.zeros(P, np.int32)
-        pt_type[:n_pts] = int(PointType.GOOD)
-        slots = np.arange(n_pts)
+        def t(x, dtype=f32):
+            return torch.as_tensor(np.asarray(x), device=dev).to(dtype)
 
-        kf_pose = np.tile(np.eye(4), (K, 1, 1))
-        kf_pose[1] = second.pose_wc
-        kf_valid = np.zeros(K, bool)
-        kf_valid[:2] = True
-        kf_frame_id = -np.ones(K, np.int64)
-        kf_frame_id[:2] = [first.frame_id, second.frame_id]
-        feat_uv = np.zeros((K, F, 2))
-        feat_point = -np.ones((K, F), np.int64)
-        feat_valid = np.zeros((K, F), bool)
-        feat_tabs = [torch.zeros((K, F, P2), dtype=f32, device=dev) for _ in range(3)]
-        feat_ok = torch.zeros((K, F), dtype=torch.bool, device=dev)
-        for s, (rec, uv) in enumerate(((first, res.uv_ref), (second, res.uv_cur))):
-            n = min(n_pts, F)
-            feat_uv[s, :n] = uv[:n]
-            feat_point[s, :n] = slots[:n]
-            feat_valid[s, :n] = True
-            p, gx, gy, ok = padded_patch_and_gradients(
-                rec.pyramid.base_gradient, torch.as_tensor(uv[:n], dtype=f32, device=dev),
-                cfg_a.patch_size_feature_alignment)
-            for tab, val in zip(feat_tabs, (p, gx, gy)):
-                tab[s, :n] = val
-            feat_ok[s, :n] = ok
-        kf_img0 = torch.zeros((K, H, W), dtype=f32, device=dev)
-        kf_img0[0] = first.pyramid.base_image
-        kf_img0[1] = second.pyramid.base_image
-
-        t = lambda a, dtype=f32: torch.as_tensor(np.asarray(a), device=dev).to(dtype)  # noqa: E731
+        kf_img0 = torch.zeros((K, sys_.height, sys_.width), dtype=f32, device=dev)
+        for s in a.keyframe_slots():
+            if a.kf_pyramids[s] is not None:
+                kf_img0[s] = a.kf_pyramids[s].base_image.to(f32)
         m = DeviceMap(
-            kf_R=t(kf_pose[:, :3, :3]), kf_t=t(kf_pose[:, :3, 3]), kf_valid=t(kf_valid, torch.bool),
-            kf_frame_id=t(kf_frame_id, i32), kf_counter=torch.tensor(2, dtype=i32, device=dev),
-            kf_img0=kf_img0, feat_uv=t(feat_uv), feat_point=t(feat_point, i32),
-            feat_valid=t(feat_valid, torch.bool), feat_patch=feat_tabs[0], feat_gx=feat_tabs[1],
-            feat_gy=feat_tabs[2], feat_ok=feat_ok, pt_pos=t(pt_pos), pt_type=t(pt_type, i32),
-            pt_valid=t(pt_valid, torch.bool), pt_succ=torch.zeros(P, dtype=i32, device=dev),
-            pt_fail=torch.zeros(P, dtype=i32, device=dev),
+            kf_R=t(a.kf_pose[:, :3, :3]), kf_t=t(a.kf_pose[:, :3, 3]), kf_valid=t(a.kf_valid, torch.bool),
+            kf_frame_id=t(a.kf_frame_id, i32), kf_counter=t(a.kf_counter, i32), kf_img0=kf_img0,
+            feat_uv=t(a.feat_uv), feat_point=t(a.feat_point, i32), feat_valid=t(a.feat_valid, torch.bool),
+            feat_patch=t(a.feat_patch), feat_gx=t(a.feat_gx), feat_gy=t(a.feat_gy),
+            feat_ok=t(a.feat_patch_ok, torch.bool), pt_pos=t(a.pt_pos), pt_type=t(a.pt_type, i32),
+            pt_valid=t(a.pt_valid, torch.bool), pt_succ=t(a.pt_succeeded, i32),
+            pt_fail=t(a.pt_failed, i32),
         )
-
-        # re-detect on the second keyframe, avoiding its features, and seed filters
-        bank = FilterBank.empty(C, 49, device=dev)
+        # the filter bank + the feature-alignment tables of each seed, sampled
+        # from its host keyframe's gradient image
+        bank = sys_.filters
+        C = bank.mu.shape[0]
         fa = [torch.zeros((C, P2), dtype=f32, device=dev) for _ in range(3)]
         fa_ok = torch.zeros((C,), dtype=torch.bool, device=dev)
-        self.selector.reset_grid()
-        self.selector.set_existing_features(second.uv[:n_pts])
-        det_uv = self._detect(second.pyramid)
-        if len(det_uv):
-            uv_new = torch.as_tensor(det_uv, dtype=f32, device=dev)
-            patches, p_ok = extract_patches(second.pyramid.base_image, uv_new, 7)
-            new = init_filters(uv_new, cam.backproject(uv_new), patches, kf_slot=1,
-                               depth_mean=max(res.median_depth, 1e-3),
-                               depth_min=max(0.5 * res.min_depth, 1e-4), kf_counter=2, new_valid=p_ok)
-            src = torch.nonzero(new.valid)[:C, 0]
-            n = src.shape[0]
-            bank = FilterBank(*[b.index_copy(0, torch.arange(n, device=dev), x[src])
-                                for b, x in zip(bank, new)])
-            p, gx, gy, ok = padded_patch_and_gradients(second.pyramid.base_gradient, new.uv_ref[src],
-                                                       cfg_a.patch_size_feature_alignment)
-            for tab, val in zip(fa, (p, gx, gy)):
-                tab[:n] = val
-            fa_ok[:n] = ok
+        valid_np = bank.valid.cpu().numpy()
+        kf_slots = bank.kf_slot.cpu().numpy()
+        for s in np.unique(kf_slots[valid_np]):
+            if not a.kf_valid[s] or a.kf_pyramids[s] is None:
+                continue
+            rows = torch.as_tensor(np.nonzero(valid_np & (kf_slots == s))[0], device=dev)
+            *tabs, ok = padded_patch_and_gradients(a.kf_pyramids[s].base_gradient, bank.uv_ref[rows],
+                                                   sys_.config.algorithm.patch_size_feature_alignment)
+            for tab, val in zip(fa, tabs):
+                tab[rows] = val.to(f32)
+            fa_ok[rows] = ok
         filt = DeviceFilters(bank=bank, fa_patch=fa[0], fa_gx=fa[1], fa_gy=fa[2], fa_ok=fa_ok,
                              pending=torch.zeros((C,), dtype=torch.bool, device=dev),
                              pend_mu=torch.zeros((C,), dtype=f32, device=dev))
 
-        # tracking reference = the second keyframe and its features
-        n = min(n_pts, F)
-        uv = np.zeros((F, 2))
-        uv[:n] = second.uv[:n]
-        pts = np.zeros(F, np.int64)
-        pts[:n] = slots[:n]
+        # tracking reference = the host's reference frame (the newest keyframe)
+        ref_rec = sys_.ref_frame
+        T_ref = ref_rec.pose_wc
+        uv = _pad_rows(np.asarray(ref_rec.feat_uv, np.float64), F)
+        pts = _pad_rows(np.asarray(ref_rec.feat_point, np.int64), F)
+        n = min(len(ref_rec.feat_uv), F)
         val = np.zeros(F, bool)
-        val[:n] = pt_valid[pts[:n]]
-        T = second.pose_wc
-        p_ref = pt_pos[pts] @ T[:3, :3].T + T[:3, 3]
+        val[:n] = a.pt_valid[pts[:n]]
+        p_ref = a.pt_pos[np.clip(pts, 0, P - 1)] @ T_ref[:3, :3].T + T_ref[:3, 3]
         val &= p_ref[:, 2] > 1e-3
         feats = AlignFeatures(uv_host=t(uv), host_idx=torch.zeros(F, dtype=i32, device=dev),
                               points_ref=t(p_ref), valid=t(val, torch.bool))
-        pyr_imgs = tuple(x.to(f32) for x in second.pyramid.images)
-        tabs = self.vo.aligner.precompute_ref_windows(pyr_imgs, feats, cam.fx, cam.fy)
-        ref = TrackRef(pyr_images=pyr_imgs, T_ref_w=SE3(t(T[:3, :3]), t(T[:3, 3])),
-                       ref_slot=torch.tensor(1, dtype=i32, device=dev), feats=feats,
+        pyr_imgs = tuple(x.to(f32) for x in ref_rec.pyramid.images)
+        tabs = self.vo.aligner.precompute_ref_windows(pyr_imgs, feats, self.camera.fx, self.camera.fy)
+        ref = TrackRef(pyr_images=pyr_imgs, T_ref_w=SE3(t(T_ref[:3, :3]), t(T_ref[:3, 3])),
+                       ref_slot=t(ref_rec.kf_slot, i32), feats=feats,
                        align_patches=tabs[0], align_J=tabs[1], align_vis=tabs[2])
-        return VOState(map=m, filt=filt, ref=ref, T_cur_ref=SE3(t(T[:3, :3]), t(T[:3, 3])),
-                       frame_id=torch.tensor(self.frame_count, dtype=i32, device=dev),
-                       failed=torch.zeros((), dtype=torch.bool, device=dev))
+        prev = sys_.prev_rel
+        self.state = VOState(map=m, filt=filt, ref=ref, T_cur_ref=SE3(t(prev[:3, :3]), t(prev[:3, 3])),
+                             frame_id=t(sys_.frame_count, i32),
+                             failed=torch.zeros((), dtype=torch.bool, device=dev))
+
+    def to_host(self) -> System:
+        """Device state → the host ``System`` (for checkpoints, the per-frame
+        tail and relocalization). Keyframe pyramids are rebuilt from the
+        level-0 images the state holds, as ``System.load_checkpoint`` does."""
+        st = self.state
+        sys_ = self.host
+        a = sys_.arena
+        m = st.map
+
+        def n(x, dtype):  # a fresh, writable array: the arena mutates in place
+            return x.cpu().numpy().astype(dtype)
+
+        a.kf_valid = n(m.kf_valid, bool)
+        pose = np.tile(np.eye(4), (a.max_keyframes, 1, 1))
+        pose[:, :3, :3] = n(m.kf_R, np.float64)
+        pose[:, :3, 3] = n(m.kf_t, np.float64)
+        a.kf_pose = pose
+        a.kf_frame_id = n(m.kf_frame_id, np.int64)
+        a.kf_counter = int(m.kf_counter)
+        a.feat_uv = n(m.feat_uv, np.float64)
+        a.feat_point = n(m.feat_point, np.int64)
+        a.feat_valid = n(m.feat_valid, bool)
+        a.feat_patch = n(m.feat_patch, np.float32)
+        a.feat_gx = n(m.feat_gx, np.float32)
+        a.feat_gy = n(m.feat_gy, np.float32)
+        a.feat_patch_ok = n(m.feat_ok, bool)
+        a.pt_pos = n(m.pt_pos, np.float64)
+        a.pt_type = n(m.pt_type, np.int32)
+        a.pt_valid = n(m.pt_valid, bool)
+        a.pt_succeeded = n(m.pt_succ, np.int32)
+        a.pt_failed = n(m.pt_fail, np.int32)
+        for s in range(a.max_keyframes):
+            a.kf_pyramids[s] = (build_pyramid(m.kf_img0[s].to(sys_.dtype), self.scfg.levels)
+                                if a.kf_valid[s] else None)
+        sys_.filters = st.filt.bank
+        sys_.frame_count = int(st.frame_id)
+        sys_.trajectory = list(self.trajectory)
+        sys_.status = (SystemStatus.RELOCALIZATION if bool(st.failed)
+                       else SystemStatus.PROCESS_NEW_FRAME)
+        # the reference frame is re-seeded from the device's reference keyframe
+        rec = sys_.keyframe_record(int(st.ref.ref_slot))
+        sys_.ref_frame = rec
+        sys_.last_kf = rec
+        T_rel = np.eye(4)
+        T_rel[:3, :3] = n(st.T_cur_ref.rotation, np.float64)
+        T_rel[:3, 3] = n(st.T_cur_ref.translation, np.float64)
+        sys_.prev_rel = T_rel
+        return sys_
 
     # ------------------------------------------------------------------ api
     def add_image(self, image: np.ndarray, timestamp: float = 0.0):
         if self.state is None:
-            return self._bootstrap_frame(image)
+            r = self.host.add_image(np.asarray(image), timestamp)
+            self.trajectory.append(None if r == FrameResult.FAILED else self.host.trajectory[-1])
+            self.metrics.append(self.host.metrics[-1])
+            # (re-)enter the device path once tracking is healthy AND the
+            # reference frame is a keyframe: right after relocalization it is a
+            # plain tracked frame with no cached patches
+            if (self.host.status == SystemStatus.PROCESS_NEW_FRAME
+                    and self.host.ref_frame is not None
+                    and self.host.ref_frame.kf_slot is not None):
+                self._pack()
+            return
         self._buffer.append(np.asarray(image, np.float32))
         if len(self._buffer) >= self.supersteps_per_chunk * self.scfg.period:
             self._dispatch(self.supersteps_per_chunk)
 
     def finish(self):
         """Flush buffered frames (the tail superstep is padded by repeating
-        the last frame; padded outputs are dropped)."""
+        the last frame; padded outputs are dropped). Where a dispatch trips
+        relocalization (``state`` drops to None), the frames still buffered
+        go through the host ``System``."""
         per = self.scfg.period
         while self.state is not None and len(self._buffer) >= per:
             self._dispatch(len(self._buffer) // per)
@@ -735,6 +697,12 @@ class DeviceSystem:
             n_real = len(self._buffer)
             self._buffer += [self._buffer[-1]] * (per - n_real)
             self._dispatch(1, n_real_tail=n_real)
+        if self.state is None and self._buffer:
+            tail, self._buffer = self._buffer, []
+            for img in tail:
+                self.add_image(img)
+            if self._buffer:  # re-entered the device path mid-tail
+                self.finish()
 
     def _dispatch(self, n_supersteps: int, n_real_tail: Optional[int] = None):
         per = self.scfg.period
@@ -750,15 +718,30 @@ class DeviceSystem:
             T = np.eye(4)
             T[:3, :3] = outs.R[c, p]
             T[:3, 3] = outs.t[c, p]
-            self._emit(T if ok else None,
-                       ("KEYFRAME" if bool(outs.is_kf[c, p]) else "SUCCESS") if ok else "FAILED",
-                       n_features=int(outs.n_matches[c, p]), n_points=int(outs.n_points[c, p]),
-                       n_filters=int(outs.n_filters[c, p]), align_rmse=float(outs.rmse[c, p]))
-        self.frame_count += n
+            self.trajectory.append(T if ok else None)
+            self.metrics.append({
+                "frame": len(self.trajectory) - 1,
+                "result": ("KEYFRAME" if bool(outs.is_kf[c, p]) else "SUCCESS") if ok else "FAILED",
+                "n_features": int(outs.n_matches[c, p]), "n_points": int(outs.n_points[c, p]),
+                "n_filters": int(outs.n_filters[c, p]), "align_rmse": float(outs.rmse[c, p]),
+            })
         if bool(self.state.failed):
-            raise NotImplementedError(
-                "tracking failed: relocalization needs the host System, which the port does not "
-                "have yet")
+            self._relocalize()
+
+    def _relocalize(self):
+        """At a chunk boundary after a failure: unpack to the host, whose
+        ``System`` is then in ``RELOCALIZATION``. The next ``add_image`` calls
+        go through it frame by frame; once it is back in ``PROCESS_NEW_FRAME``
+        on a keyframe, ``add_image`` re-packs."""
+        self.n_relocalizations += 1
+        self.to_host()
+        self.state = None
 
     def write_poses(self, path: str):
         write_kitti_poses(path, self.trajectory)
+
+    def save_checkpoint(self, path: str):
+        if self.state is not None:
+            self.to_host()
+        self.host.trajectory = list(self.trajectory)
+        self.host.save_checkpoint(path)

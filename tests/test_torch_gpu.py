@@ -16,8 +16,11 @@ import torch
 from sdvo_tpu_torch.ops import fa_align, selfcheck
 
 SMALL = {"lm": 64, "fa": 32, "pose": 40, "depth_filters": 64}
+# the host-* cases are K1 at the host path's shape: 512 features (more residuals
+# than a block keeps in registers), 12 iterations a level
 CASES = ["lm_align_level[L0]", "lm_align_level[L1]", "lm_align_level[L2]", "lm_align_level[L3]",
-         "fa_align_batch", "pose_refine", "depth_scores"]
+         "lm_align_level[host-L0]", "lm_align_level[host-L1]", "lm_align_level[host-L2]",
+         "lm_align_level[host-L3]", "fa_align_batch", "pose_refine", "depth_scores"]
 
 
 def _cuda() -> torch.device:
@@ -103,3 +106,31 @@ def test_fa_wrapper_launches_its_kernel_and_nothing_else():
                  and e.key != "Activity Buffer Request"]
     assert len(on_device) == 1 and "fa_align_kernel" in on_device[0], on_device
     assert uv.dtype == torch.float32 and conv.dtype == torch.bool
+
+
+@pytest.mark.gpu
+def test_host_system_in_float64_on_the_card():
+    """The per-frame ``System`` with ``compute_dtype="float64"`` on the card:
+    ``local_ba`` and ``optimize_pose`` compute in float64 there, the kernels
+    keep their float32 function (their callers cast at the boundary), and
+    eight frames of the KITTI-sized ridge scene track."""
+    import numpy as np
+
+    from sdvo_tpu_torch.config import load_config
+    from sdvo_tpu_torch.dataio.synthetic import render_bench_sequence
+    from sdvo_tpu_torch.ops import lm_align
+    from sdvo_tpu_torch.pipeline.system import System
+
+    _cuda()
+    frames, _ = render_bench_sequence(np.random.default_rng(0), 8)
+    config = load_config(overrides={
+        "initialization": {"disparity_threshold": 3, "threshold_gradient_magnitude": 20},
+    }).replace(compute_dtype="float64")
+    system = System(config)
+    assert system.device.type == "cuda" and system.dtype == torch.float64
+    before = (lm_align.launches, lm_align.plain_cuda_calls)
+    results = [system.add_image(f.astype(np.float32), float(i)).name for i, f in enumerate(frames)]
+    assert results == ["KEYFRAME", "KEYFRAME", "SUCCESS", "SUCCESS", "KEYFRAME", "SUCCESS", "SUCCESS",
+                       "KEYFRAME"], results
+    assert system.filters.mu.dtype == torch.float64 and system.n_local_ba >= 1
+    assert lm_align.launches - before[0] == 4 * 6 and lm_align.plain_cuda_calls == before[1]
