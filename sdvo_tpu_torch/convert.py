@@ -6,7 +6,9 @@ arena ↔ the port's.
 port's ``VOState`` field by field on ``device``, keeping every dtype. The
 match is by NamedTuple class name and field name, so nothing of the JAX
 package is imported. ``to_numpy`` goes the other way: the port's state as
-the same nested NamedTuples holding numpy arrays.
+the same nested NamedTuples holding numpy arrays. Both take a stacked
+``VOState`` of the multi-sequence path (every leaf with a leading sequence
+axis, ``parallel.multi_seq.stack_states``) as they take one sequence's.
 
 ``arena_to_numpy`` reads a ``MapArena`` of either package (they name their
 arrays alike) into a dict of copies under the keys a checkpoint uses;

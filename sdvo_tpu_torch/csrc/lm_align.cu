@@ -43,6 +43,11 @@
 //    the Pallas kernel.
 //  * Larger problems (N·P² > 7168) take the same code with the residuals
 //    recomputed from the pose in each pass instead of kept (Resid<0>).
+//  * S problems (one per sequence of the multi-sequence path) are one
+//    launch of S blocks: block b reads problem b's pose, windows and tables
+//    at b times each one's size and writes its own pose and statistics. The
+//    blocks are independent, so up to 132 solve at once, one an SM; one
+//    problem is the launch of one block, the same code.
 //  * Not a thread block cluster with the windows in distributed shared
 //    memory: on an H100 a reduction round across a cluster of four blocks
 //    measured 2,242 cycles against 677 in one block of 1024 threads (the two
@@ -248,6 +253,17 @@ __global__ void __launch_bounds__(kWarps * 32, 1) lm_align_level_kernel(
     float* __restrict__ out_stats, int max_iters, float min_rel_decrease) {
   __shared__ BlockShared<kWarps> sm;
   extern __shared__ float feat[];  // (N, 6), then (N, 3) of spots where S > 0
+  const size_t problem = blockIdx.x;  // this block's problem of the launch
+  const size_t P2 = (size_t)a.patch * a.patch;
+  a.win += problem * a.N * a.WH * a.WW;
+  a.patches += problem * a.N * P2;
+  a.J += problem * a.N * P2 * 6;
+  a.pts += problem * a.N * 3;
+  a.org += problem * a.N * 2;
+  a.vis_in += problem * a.N;
+  pose_in += problem * 12;
+  out_pose += problem * 12;
+  out_stats += problem * 4;
   for (int n = threadIdx.x; n < a.N; n += kWarps * 32) {
     feat[6 * n] = a.pts[3 * n];
     feat[6 * n + 1] = a.pts[3 * n + 1];
@@ -269,39 +285,42 @@ constexpr int kLmMaxFeaturesKept = 2048;  // and 12 more where the residuals are
 
 template <int kWarps, int S>
 int lm_launch_tier(const LmArgs& a, const float* pose_in, float* out_pose, float* out_stats,
-                   int max_iters, float min_rel_decrease, cudaStream_t stream) {
+                   int max_iters, float min_rel_decrease, int n_problems, cudaStream_t stream) {
   static const cudaError_t opted_in = cudaFuncSetAttribute(
       lm_align_level_kernel<kWarps, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kLmMaxFeatures * 6 * (int)sizeof(float));
   if (opted_in != cudaSuccess) return (int)opted_in;
-  lm_align_level_kernel<kWarps, S><<<1, kWarps * 32, a.N * (S > 0 ? 9 : 6) * sizeof(float), stream>>>(
-      a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease);
+  lm_align_level_kernel<kWarps, S>
+      <<<n_problems, kWarps * 32, a.N * (S > 0 ? 9 : 6) * sizeof(float), stream>>>(
+          a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease);
   return (int)cudaGetLastError();
 }
 
 constexpr int kLmWarps = 32;
 
 int lm_launch(const LmArgs& a, const float* pose_in, float* out_pose, float* out_stats,
-              int max_iters, float min_rel_decrease, cudaStream_t stream) {
-  if (a.N > kLmMaxFeatures) return (int)cudaErrorInvalidValue;
+              int max_iters, float min_rel_decrease, int n_problems, cudaStream_t stream) {
+  if (a.N > kLmMaxFeatures || n_problems < 1) return (int)cudaErrorInvalidValue;
   if ((long long)a.N * a.patch * a.patch <= kLmSlotsTotal && a.N <= kLmMaxFeaturesKept)
     return lm_launch_tier<kLmWarps, kLmSlotsTotal / (kLmWarps * 32)>(
-        a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease, stream);
+        a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease, n_problems, stream);
   return lm_launch_tier<kLmWarps, 0>(a, pose_in, out_pose, out_stats, max_iters,
-                                     min_rel_decrease, stream);
+                                     min_rel_decrease, n_problems, stream);
 }
 
 }  // namespace
 }  // namespace sdvo
 
+// n_problems problems of one shape, each array holding them one after the
+// other (pose_in (S, 3, 4), windows (S, N, WH, WW), ..., out_stats (S, 4)).
 extern "C" int sdvo_lm_align_level(const float* pose_in, const float* windows, const float* patches,
                                    const float* J, const float* pts, const float* org,
                                    const float* vis, float fx, float fy, float cx, float cy,
                                    float* out_pose, float* out_stats, int N, int WH, int WW,
                                    int patch, int max_iters, float min_rel_decrease,
-                                   void* stream) {
+                                   int n_problems, void* stream) {
   const sdvo::LmArgs a{windows, patches, J,  pts, org, vis, nullptr, nullptr,
                        fx,      fy,      cx, cy,  N,   WH,  WW,      patch};
   return sdvo::lm_launch(a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease,
-                         (cudaStream_t)stream);
+                         n_problems, (cudaStream_t)stream);
 }

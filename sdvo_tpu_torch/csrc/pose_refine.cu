@@ -30,6 +30,9 @@
 //    warp 0 alone and are published through shared memory.
 //  * Problems beyond the register tiers recompute the residual in each pass
 //    (Resid<0>), so any N runs.
+//  * S problems (one per sequence of the multi-sequence path) are one
+//    launch of S blocks, block b on problem b's arrays; one problem is the
+//    launch of one block.
 #include "lm_block.cuh"
 
 namespace sdvo {
@@ -152,6 +155,13 @@ __global__ void __launch_bounds__(kWarps * 32, 1) pose_refine_kernel(
     PoseArgs a, const float* __restrict__ pose_in, float* __restrict__ out_pose,
     float* __restrict__ out_stats, int max_iters, float min_rel_decrease) {
   __shared__ BlockShared<kWarps> sm;
+  const size_t problem = blockIdx.x;  // this block's problem of the launch
+  a.pts += problem * a.N * 3;
+  a.brg += problem * a.N * 3;
+  a.vis += problem * a.N;
+  pose_in += problem * 12;
+  out_pose += problem * 12;
+  out_stats += problem * 4;
   Block<kWarps> blk(sm);
   const PoseProblem<kWarps * 32, S> prob{a};
   lm_solve(prob, blk, pose_in, out_pose, out_stats, max_iters, min_rel_decrease);
@@ -161,20 +171,24 @@ __global__ void __launch_bounds__(kWarps * 32, 1) pose_refine_kernel(
 }  // namespace sdvo
 
 // Five warps (one observation a thread) up to 160 observations, eight (four
-// a thread) up to 1024, eight recomputing beyond.
+// a thread) up to 1024, eight recomputing beyond. n_problems problems of one
+// shape, each array holding them one after the other (pose_in (S, 3, 4),
+// pts (S, N, 3), ..., out_stats (S, 4)).
 extern "C" int sdvo_pose_refine(const float* pose_in, const float* pts, const float* brg,
                                 const float* vis, float* out_pose, float* out_stats, int N,
-                                int max_iters, float min_rel_decrease, void* stream) {
+                                int max_iters, float min_rel_decrease, int n_problems,
+                                void* stream) {
+  if (n_problems < 1) return (int)cudaErrorInvalidValue;
   const sdvo::PoseArgs a{pts, brg, vis, N};
   const cudaStream_t s = (cudaStream_t)stream;
   if (N <= 160)
-    sdvo::pose_refine_kernel<5, 1><<<1, 160, 0, s>>>(a, pose_in, out_pose, out_stats, max_iters,
-                                                     min_rel_decrease);
+    sdvo::pose_refine_kernel<5, 1><<<n_problems, 160, 0, s>>>(a, pose_in, out_pose, out_stats,
+                                                              max_iters, min_rel_decrease);
   else if (N <= 1024)
-    sdvo::pose_refine_kernel<8, 4><<<1, 256, 0, s>>>(a, pose_in, out_pose, out_stats, max_iters,
-                                                     min_rel_decrease);
+    sdvo::pose_refine_kernel<8, 4><<<n_problems, 256, 0, s>>>(a, pose_in, out_pose, out_stats,
+                                                              max_iters, min_rel_decrease);
   else
-    sdvo::pose_refine_kernel<8, 0><<<1, 256, 0, s>>>(a, pose_in, out_pose, out_stats, max_iters,
-                                                     min_rel_decrease);
+    sdvo::pose_refine_kernel<8, 0><<<n_problems, 256, 0, s>>>(a, pose_in, out_pose, out_stats,
+                                                              max_iters, min_rel_decrease);
   return (int)cudaGetLastError();
 }

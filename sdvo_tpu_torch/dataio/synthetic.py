@@ -139,3 +139,14 @@ def render_bench_sequence(rng, n_frames: int):
         frames.append(render_ridge(tex, cam, _Pose(T44), z_near=12.0, z_far=18.0, split_x=-1.5,
                                    supersample=1))
     return frames, T_true
+
+
+def render_bench_sequences(seeds, n_frames: int):
+    """``render_bench_sequence`` for each texture seed (the camera path is the
+    same), as float32 frames, one after the other in this process. Returns a
+    list of (frames, ground-truth poses)."""
+    out = []
+    for seed in seeds:
+        frames, T_true = render_bench_sequence(np.random.default_rng(seed), n_frames)
+        out.append(([f.astype(np.float32) for f in frames], T_true))
+    return out

@@ -3,6 +3,8 @@ for another device."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -15,3 +17,25 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError('no CUDA device: the port runs on the card by default; pass '
                            'device="cpu" to run on the CPU')
     return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms inside the block, so that a run on
+    the card gives the same bits every time: ``index_add`` of floats (the
+    bundle adjustment's normal equations) then sums through a sort in a fixed
+    order instead of by atomic adds in whatever order the threads reach
+    them. An op without a deterministic form warns instead of raising. Memory
+    from ``torch.empty`` stays unfilled, as outside. cuBLAS is reproducible
+    only with ``CUBLAS_WORKSPACE_CONFIG`` (``:4096:8``) set before the
+    process's first cuBLAS call."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+        torch.utils.deterministic.fill_uninitialized_memory = fill

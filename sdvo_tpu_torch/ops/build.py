@@ -9,8 +9,15 @@ headers), so the build takes seconds. Each C entry point launches on the
 given stream and returns ``cudaGetLastError()``; ``check`` turns a non-zero
 code into an exception.
 
-Nothing here runs at import time: CPU-only installs import the package and
-never touch nvcc.
+Each kernel's wrapper calls an operator ``sdvo::<name>`` (``define_op``)
+whose CPU implementation is the kernel's plain version and whose CUDA
+implementation launches the kernel, with a ``torch.func.vmap`` rule, so
+that the multi-sequence path (``sdvo_tpu_torch.parallel``) batches it: one
+launch for every sequence of the batch on the card, one plain call per
+sequence on the CPU.
+
+Nothing is built at import time (the operators are only defined): CPU-only
+installs import the package and never touch nvcc.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import glob
 import os
 import shutil
 import subprocess
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -37,9 +44,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "sdvo_lm_align_level": [_P] * 7 + [_F] * 4 + [_P] * 2 + [_I] * 5 + [_F, _P],
+    "sdvo_lm_align_level": [_P] * 7 + [_F] * 4 + [_P] * 2 + [_I] * 5 + [_F, _I, _P],
     "sdvo_fa_align": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
-    "sdvo_pose_refine": [_P] * 6 + [_I, _I, _F, _P],
+    "sdvo_pose_refine": [_P] * 6 + [_I, _I, _F, _I, _P],
     "sdvo_depth_scores": [_P] * 5 + [_I] * 4 + [_P],
     "sdvo_empty_launch": [_P],
 }
@@ -114,7 +121,9 @@ def launcher(module, name: str, symbol: str, args: tuple, device: torch.device, 
     """``launch()`` that enqueues the kernel ``symbol(*args, stream)`` alone
     on ``device``'s current stream, raises on a refused launch and counts it
     in ``module.launches``. ``tensors`` are those whose pointers ``args``
-    holds: they live as long as ``launch`` does."""
+    holds, outputs included: they live as long as ``launch`` does, so a
+    launch kept without its outputs (``selfcheck.cold_launches``) never
+    writes into memory the allocator has handed on."""
     fn = getattr(library(), symbol)
 
     def launch():
@@ -140,3 +149,48 @@ def check_inputs(name: str, device: torch.device, shapes: dict, dtypes: Optional
             raise ValueError(f"{name}: {key} must be contiguous")
         if tuple(t.shape) != tuple(shapes[key]):
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {shapes[key]}")
+
+
+_OPS_LIB = torch.library.Library("sdvo", "DEF")
+
+
+def define_op(name: str, schema: str, plain: Callable, cuda: Callable):
+    """The operator ``sdvo::<name>`` of ``schema`` (it returns a tuple of
+    tensors): ``plain`` on CPU tensors, ``cuda`` (one launch) on CUDA
+    tensors, and a ``torch.func.vmap`` rule. On CPU tensors the rule calls
+    the op once per member of the batch, so that each gets exactly the
+    result of its own call. On CUDA tensors it moves the batch to the front
+    of every tensor, expands the tensors that have none, makes them
+    contiguous and calls ``cuda`` once: one launch for the whole batch.
+    Returns the function the wrapper calls: outside ``torch.func.vmap`` (no
+    argument is a functorch tensor) it calls ``plain`` or ``cuda`` itself,
+    so that a one-problem call pays no dispatch; inside, the op."""
+    _OPS_LIB.define(name + schema)
+    _OPS_LIB.impl(name, plain, "CPU")
+    _OPS_LIB.impl(name, cuda, "CUDA")
+    op = getattr(torch.ops.sdvo, name).default
+
+    def rule(info, in_dims, *args):
+        B = info.batch_size
+        first = next(a for a, d in zip(args, in_dims) if d is not None)
+        if not first.is_cuda:
+            calls = [op(*[a.select(d, b) if d is not None else a for a, d in zip(args, in_dims)])
+                     for b in range(B)]
+            outs = tuple(torch.stack(o) for o in zip(*calls))
+        else:
+            outs = cuda(*[
+                a.movedim(d, 0).contiguous() if d is not None
+                else a.expand(B, *a.shape).contiguous() if isinstance(a, torch.Tensor) else a
+                for a, d in zip(args, in_dims)])
+        return outs, (0,) * len(outs)
+
+    torch.library.register_vmap(f"sdvo::{name}", rule, lib=_OPS_LIB)
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+
+    def call(*args):
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        if any(wrapped(a) for a in tensors):
+            return op(*args)
+        return (cuda if tensors[0].is_cuda else plain)(*args)
+
+    return call

@@ -1,9 +1,11 @@
 """K2 — batched 2D + illumination feature alignment (N independent LMs).
 
 Port of ``sdvo_tpu.ops.pallas_fa.fa_align_batch``. ``fa_align_batch`` is the
-wrapper: CUDA tensors go to ``csrc/fa_align.cu`` (one warp per feature, which
-leaves its loop when the feature stalls), CPU tensors to
-``fa_align_batch_plain``. Semantics of the Pallas kernel, which
+wrapper around the operator ``sdvo::fa_align_batch``: CUDA tensors go to
+``csrc/fa_align.cu`` (one warp per feature, which leaves its loop when the
+feature stalls), CPU tensors to ``fa_align_batch_plain``. The features are
+independent rows, so under ``torch.func.vmap`` the S·N rows of S sequences
+are one launch on the card (one plain call per sequence on the CPU). Semantics of the Pallas kernel, which
 differ from the XLA path of ``align_features_2d_cached``: the per-feature
 median is a 10-step bisection, the 10 iterations are unrolled, and a feature
 freezes the moment it stalls.
@@ -157,30 +159,46 @@ def kernel_launcher(windows, ref_patch, gx, gy, uv_init, origins, live, patch: i
     rmse (N,), converged (N,) bool): ``launch()`` enqueues the kernel alone,
     on the current stream, and counts it. The kernel reads ``live`` as the
     bool tensor it is and writes ``converged`` as one, so float32 inputs cost
-    no launch but the kernel's."""
+    no launch but the kernel's. Leading axes (S sequences of N features) are
+    S·N rows of one launch."""
     dev = windows.device
-    N, WH, WW = windows.shape
+    lead = tuple(windows.shape[:-3])
+    N, WH, WW = windows.shape[-3:]
     P2 = patch * patch
     f32 = torch.float32
     uv0 = uv_init.to(f32).contiguous()
     live = live.to(torch.bool).contiguous()
     build.check_inputs(
         "fa_align_batch", dev,
-        {"windows": (N, WH, WW), "ref_patch": (N, P2), "gx": (N, P2), "gy": (N, P2),
-         "uv_init": (N, 2), "origins": (N, 2), "live": (N,)},
+        {k: lead + v for k, v in {"windows": (N, WH, WW), "ref_patch": (N, P2), "gx": (N, P2),
+                                  "gy": (N, P2), "uv_init": (N, 2), "origins": (N, 2),
+                                  "live": (N,)}.items()},
         dtypes={"live": torch.bool},
         windows=windows, ref_patch=ref_patch, gx=gx, gy=gy, uv_init=uv0, origins=origins,
         live=live,
     )
-    uv = torch.empty((N, 2), dtype=f32, device=dev)
-    rmse = torch.empty((N,), dtype=f32, device=dev)
-    conv = torch.empty((N,), dtype=torch.bool, device=dev)
+    uv = torch.empty(lead + (N, 2), dtype=f32, device=dev)
+    rmse = torch.empty(lead + (N,), dtype=f32, device=dev)
+    conv = torch.empty(lead + (N,), dtype=torch.bool, device=dev)
+    rows = live.numel()
     args = (windows.data_ptr(), ref_patch.data_ptr(), gx.data_ptr(), gy.data_ptr(), uv0.data_ptr(),
             origins.data_ptr(), live.data_ptr(), uv.data_ptr(), rmse.data_ptr(), conv.data_ptr(),
-            N, WH, WW, patch, max_iters, float(sigma_floor), float(contrast_threshold))
+            rows, WH, WW, patch, max_iters, float(sigma_floor), float(contrast_threshold))
     launch = build.launcher(sys.modules[__name__], "fa_align_batch", "sdvo_fa_align", args, dev,
-                            (uv0, live, windows, ref_patch, gx, gy, origins))
+                            (uv0, live, windows, ref_patch, gx, gy, origins, uv, rmse, conv))
     return launch, uv, rmse, conv
+
+
+def _op_cuda(*args):
+    launch, uv, rmse, conv = kernel_launcher(*args)
+    launch()
+    return uv, rmse, conv
+
+
+_op = build.define_op("fa_align_batch", "(Tensor windows, Tensor ref_patch, Tensor gx, Tensor gy, "
+                      "Tensor uv_init, Tensor origins, Tensor live, int patch, int max_iters, "
+                      "float sigma_floor, float contrast_threshold) -> (Tensor, Tensor, Tensor)",
+                      fa_align_batch_plain, _op_cuda)
 
 
 def fa_align_batch(windows, ref_patch, gx, gy, uv_init, origins, live, patch: int = 5,
@@ -189,11 +207,8 @@ def fa_align_batch(windows, ref_patch, gx, gy, uv_init, origins, live, patch: in
     """Feature alignment of N features. windows (N, WH, WW) gradient windows,
     ref_patch/gx/gy (N, P²), uv_init/origins (N, 2), live (N,) bool.
     Returns (uv (N, 2), rmse (N,), converged (N,) bool)."""
-    if not windows.is_cuda:
-        return fa_align_batch_plain(windows, ref_patch, gx, gy, uv_init, origins, live, patch,
-                                    max_iters, sigma_floor, contrast_threshold)
-    launch, uv, rmse, conv = kernel_launcher(windows, ref_patch, gx, gy, uv_init, origins, live,
-                                             patch, max_iters, sigma_floor, contrast_threshold)
-    launch()
+    uv, rmse, conv = _op(windows, ref_patch, gx, gy, uv_init.to(torch.float32), origins,
+                         live.to(torch.bool), int(patch), int(max_iters), float(sigma_floor),
+                         float(contrast_threshold))
     dtype = uv_init.dtype
     return uv.to(dtype), rmse.to(dtype), conv

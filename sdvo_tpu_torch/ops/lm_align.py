@@ -1,9 +1,12 @@
 """K1 — one pyramid level of photometric LM in one launch.
 
 Port of ``sdvo_tpu.ops.pallas_lm.lm_align_level``. ``lm_align_level`` is the
-wrapper: a CUDA tensor goes to the hand-written kernel
-(``csrc/lm_align.cu``), a CPU tensor to ``lm_align_level_plain``, the plain
-PyTorch version of the same function. Both follow the Pallas semantics —
+wrapper around the operator ``sdvo::lm_align_level``: a CUDA tensor goes to
+the hand-written kernel (``csrc/lm_align.cu``), a CPU tensor to
+``lm_align_level_plain``, the plain PyTorch version of the same function.
+Under ``torch.func.vmap`` the op's rule solves every problem of the batch in
+one launch of the kernel (one block each) on the card, and calls the plain
+version once per problem on the CPU. Both follow the Pallas semantics —
 16-bin two-stage binned median for the robust scale, Nielsen-damped 6×6
 Cholesky, ``T ← T∘exp(−dx)``, accept on a chi² decrease, relative-decrease
 exit — not the XLA path's histogram MAD. The plain version runs the
@@ -120,10 +123,16 @@ def lm_accept(chi, chi_n, dx, g, lam_eff, nu, okc, min_rel_decrease):
 
 
 # -------------------------------------------------------------- plain version
-def lm_align_level_plain(T_init: SE3, windows, ref_patches, J, points_ref, origins, visible,
-                         fx: float, fy: float, cx: float, cy: float, patch: int = 5,
-                         max_iters: int = 12, min_rel_decrease: float = 1e-3):
-    """Plain PyTorch K1 (float32). Returns (T, rmse, iterations)."""
+def pose34(T: SE3) -> torch.Tensor:
+    """[R | t] (..., 3, 4) in float32: how the LM kernels take a pose."""
+    f32 = torch.float32
+    return torch.cat([T.rotation.to(f32), T.translation.to(f32)[..., None]], -1).contiguous()
+
+
+def _plain(pose, windows, ref_patches, J, points_ref, origins, visible, fx: float, fy: float,
+           cx: float, cy: float, patch: int, max_iters: int, min_rel_decrease: float):
+    """Plain PyTorch K1 (float32) from the pose (3, 4); returns what the
+    kernel writes: (pose (3, 4), stats (4,) = [chi², n_vis, iterations, 0])."""
     global plain_cuda_calls
     if windows.is_cuda:
         plain_cuda_calls += 1
@@ -153,8 +162,8 @@ def lm_align_level_plain(T_init: SE3, windows, ref_patches, J, points_ref, origi
         w = tukey(r, c) * vis2
         return w, torch.sum(w * r * r)
 
-    R = T_init.rotation.to(f32)
-    t = T_init.translation.to(f32)
+    R = pose[:, :3].contiguous()
+    t = pose[:, 3].contiguous()
     r_acc, vis_acc = residuals(R, t)
     w_acc, chi = weights_chi2(r_acc, vis_acc)
     lam = torch.tensor(1e-2, dtype=f32, device=dev)
@@ -190,16 +199,30 @@ def lm_align_level_plain(T_init: SE3, windows, ref_patches, J, points_ref, origi
         it = it + active.to(torch.int32)
         done = done | (active & done_n)
     n_vis = torch.clamp(vis_acc.sum() * P2, min=1.0)
-    dtype = T_init.dtype
-    return SE3(R.to(dtype), t.to(dtype)), torch.sqrt(chi / n_vis).to(dtype), it
+    return lm_stats(R, t, chi, n_vis, it)
+
+
+def lm_stats(R, t, chi, n_vis, it):
+    """What an LM kernel writes, from the plain version's final state."""
+    return torch.cat([R, t[:, None]], 1), torch.stack([chi, n_vis, it.to(chi.dtype), torch.zeros_like(chi)])
+
+
+def lm_align_level_plain(T_init: SE3, windows, ref_patches, J, points_ref, origins, visible,
+                         fx: float, fy: float, cx: float, cy: float, patch: int = 5,
+                         max_iters: int = 12, min_rel_decrease: float = 1e-3):
+    """Plain PyTorch K1 (float32). Returns (T, rmse, iterations)."""
+    return lm_result(*_plain(pose34(T_init), windows, ref_patches, J, points_ref, origins, visible,
+                             fx, fy, cx, cy, patch, max_iters, min_rel_decrease), T_init.dtype)
 
 
 # ------------------------------------------------------------------- wrapper
 def lm_result(out_pose, out_stats, dtype=torch.float32):
-    """What an LM kernel wrote — out_pose (3, 4), out_stats = [chi², n_vis,
-    iterations, 0] — as the wrappers return it: (T, rmse, iterations)."""
-    T = SE3(out_pose[:, :3].to(dtype), out_pose[:, 3].to(dtype))
-    return T, torch.sqrt(out_stats[0] / out_stats[1]).to(dtype), out_stats[2].to(torch.int32)
+    """What an LM kernel wrote — out_pose (..., 3, 4), out_stats (..., 4) =
+    [chi², n_vis, iterations, 0] — as the wrappers return it: (T, rmse,
+    iterations)."""
+    T = SE3(out_pose[..., :3].to(dtype), out_pose[..., 3].to(dtype))
+    return (T, torch.sqrt(out_stats[..., 0] / out_stats[..., 1]).to(dtype),
+            out_stats[..., 2].to(torch.int32))
 
 
 def kernel_launcher(T_init: SE3, windows, ref_patches, J, points_ref, origins, visible,
@@ -207,31 +230,53 @@ def kernel_launcher(T_init: SE3, windows, ref_patches, J, points_ref, origins, v
                     max_iters: int = 12, min_rel_decrease: float = 1e-3):
     """Checks the inputs, allocates the outputs and returns (launch, out_pose
     (3, 4), out_stats (4,) = [chi², n_vis, iterations, 0]): ``launch()``
-    enqueues the kernel alone, on the current stream, and counts it."""
+    enqueues the kernel alone, on the current stream, and counts it. With a
+    leading (S,) axis on every tensor (``T_init`` included) it is S problems
+    in one launch, with outputs (S, 3, 4) and (S, 4)."""
     dev = windows.device
-    N, WH, WW = windows.shape
+    lead = tuple(windows.shape[:-3])
+    N, WH, WW = windows.shape[-3:]
     P2 = patch * patch
     f32 = torch.float32
-    if not (1 <= patch <= 7 and 1 <= N <= 8192):
-        raise ValueError(f"lm_align_level: patch {patch} or N {N} beyond what the kernel takes")
-    pose = torch.cat([T_init.rotation.to(f32), T_init.translation.to(f32)[:, None]], 1).contiguous()
+    if len(lead) > 1 or not (1 <= patch <= 7 and 1 <= N <= 8192):
+        raise ValueError(f"lm_align_level: batch {lead}, patch {patch} or N {N} beyond what the "
+                         "kernel takes")
+    pose = pose34(T_init)
     vis = visible.to(f32).contiguous()
     build.check_inputs(
         "lm_align_level", dev,
-        {"pose": (3, 4), "windows": (N, WH, WW), "patches": (N, P2), "J": (N, P2, 6),
-         "points": (N, 3), "origins": (N, 2), "visible": (N,)},
+        {k: lead + v for k, v in {"pose": (3, 4), "windows": (N, WH, WW), "patches": (N, P2),
+                                  "J": (N, P2, 6), "points": (N, 3), "origins": (N, 2),
+                                  "visible": (N,)}.items()},
         pose=pose, windows=windows, patches=ref_patches, J=J, points=points_ref,
         origins=origins, visible=vis,
     )
-    out_pose = torch.empty((3, 4), dtype=f32, device=dev)
-    out_stats = torch.empty((4,), dtype=f32, device=dev)
+    out_pose = torch.empty(lead + (3, 4), dtype=f32, device=dev)
+    out_stats = torch.empty(lead + (4,), dtype=f32, device=dev)
     args = (pose.data_ptr(), windows.data_ptr(), ref_patches.data_ptr(), J.data_ptr(),
             points_ref.data_ptr(), origins.data_ptr(), vis.data_ptr(),
             float(fx), float(fy), float(cx), float(cy), out_pose.data_ptr(), out_stats.data_ptr(),
-            N, WH, WW, patch, max_iters, float(min_rel_decrease))
+            N, WH, WW, patch, max_iters, float(min_rel_decrease), lead[0] if lead else 1)
     launch = build.launcher(sys.modules[__name__], "lm_align_level", "sdvo_lm_align_level", args, dev,
-                            (pose, vis, windows, ref_patches, J, points_ref, origins))
+                            (pose, vis, windows, ref_patches, J, points_ref, origins, out_pose,
+                             out_stats))
     return launch, out_pose, out_stats
+
+
+def _op_cpu(R, t, *args):
+    return _plain(pose34(SE3(R, t)), *args)
+
+
+def _op_cuda(R, t, *args):
+    launch, out_pose, out_stats = kernel_launcher(SE3(R, t), *args)
+    launch()
+    return out_pose, out_stats
+
+
+_op = build.define_op("lm_align_level", "(Tensor R, Tensor t, Tensor windows, Tensor ref_patches, "
+                      "Tensor J, Tensor points_ref, Tensor origins, Tensor visible, float fx, "
+                      "float fy, float cx, float cy, int patch, int max_iters, "
+                      "float min_rel_decrease) -> (Tensor, Tensor)", _op_cpu, _op_cuda)
 
 
 def lm_align_level(T_init: SE3, windows, ref_patches, J, points_ref, origins, visible,
@@ -241,11 +286,7 @@ def lm_align_level(T_init: SE3, windows, ref_patches, J, points_ref, origins, vi
     """One LM pyramid level. windows (N, WH, WW), ref_patches (N, P²),
     J (N, P², 6), points_ref (N, 3), origins (N, 2), visible (N,) bool;
     level-scaled intrinsics. Returns (T, rmse, iterations)."""
-    if not windows.is_cuda:
-        return lm_align_level_plain(T_init, windows, ref_patches, J, points_ref, origins, visible,
-                                    fx, fy, cx, cy, patch, max_iters, min_rel_decrease)
-    launch, out_pose, out_stats = kernel_launcher(
-        T_init, windows, ref_patches, J, points_ref, origins, visible, fx, fy, cx, cy, patch,
-        max_iters, min_rel_decrease)
-    launch()
+    out_pose, out_stats = _op(T_init.rotation, T_init.translation, windows, ref_patches, J,
+                              points_ref, origins, visible, float(fx), float(fy), float(cx), float(cy),
+                              int(patch), int(max_iters), float(min_rel_decrease))
     return lm_result(out_pose, out_stats, T_init.dtype)

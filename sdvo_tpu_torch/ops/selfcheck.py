@@ -4,7 +4,9 @@ Builds, from a seed, inputs for K1–K4 shaped as the main path hands them to
 the kernels (a rendered textured plane, features on a grid, windows and
 tables made by the port's own samplers), runs each hand-written kernel and
 its plain PyTorch version on the same tensors, and reports the largest
-disagreement and both times. Also the measuring tools: the wrapper's time
+disagreement and both times. ``batched_problems`` stacks S such problems (S
+seeds) along a leading axis, as the multi-sequence path hands them to the
+kernels' batched launches. Also the measuring tools: the wrapper's time
 on the host clock (``median_ms``), the kernel's time on the device
 (``device_ms``, against ``empty_launch``) and the least time the card could
 take for the same work (``bound_ms``). ``chip_smoke.py`` runs it on the card
@@ -14,6 +16,7 @@ sizes.
 
 from __future__ import annotations
 
+import math
 import statistics
 import subprocess
 import time
@@ -306,7 +309,8 @@ def bound_ms(name: str, shapes: Dict[str, int], iterations: int = None) -> Bound
     ``shapes``: every input read once and every output written once at
     3.35 TB/s, or its float32 operations at 67 TFLOP/s, whichever is larger.
     ``shapes``: ``N``, ``WH``, ``WW``, ``P2`` (rows, window height and width,
-    patch area; K3 takes ``N`` alone). ``iterations`` are the LM iterations
+    patch area; K3 takes ``N`` alone; K4 also ``win_bytes``, the window bytes
+    its patches read, ``footprint_bytes``). ``iterations`` are the LM iterations
     the data needed (K1 and K3 report them; K2 is counted at 10, the most a
     feature can need: it is bound by bytes even then, so the features that
     stall earlier do not move its bound)."""
@@ -330,7 +334,10 @@ def bound_ms(name: str, shapes: Dict[str, int], iterations: int = None) -> Bound
             its = iterations or 10
             flops = N * P2 * ((its + 1) * _FA_EVAL_FLOPS + its * _FA_HG_FLOPS + _FA_FINAL_FLOPS)
         elif base == "depth_scores":
-            nbytes = 4 * N * (WH * WW + P2 + 2 + 2)
+            # of the windows only the 32-byte sectors the bilinear footprints
+            # touch (``win_bytes``, counted from the offsets by
+            # ``problem_shapes``); cref, offs and the two outputs whole
+            nbytes = shapes["win_bytes"] + 4 * N * (P2 + 2 + 2)
             flops = N * P2 * (_BILINEAR_FLOPS + 1 + 2 + 3)  # sample, mean, centre, squared difference
         else:
             raise KeyError(name)
@@ -403,14 +410,81 @@ def extra_problems(device) -> List[Tuple[str, tuple, dict]]:
     return problems
 
 
+def batched_problems(device, S: int = 8, sizes: Dict[str, int] = None
+                     ) -> List[Tuple[str, tuple, dict, List[tuple]]]:
+    """(name, stacked arguments, keyword arguments, the S problems' own
+    arguments) of each K1 level at the device path's shape, K2, K3 and K4:
+    problem s is ``kernel_problems``'s built from seed s more (another
+    texture, other features, points and windows), stacked along a new
+    leading axis as ``torch.func.vmap`` hands them to the batched kernel."""
+    sizes = sizes or {}
+    T0 = SE3.identity((S,), device=device)
+    per = [[] for _ in range(6)]  # (name, args, kw) of each K1 level, K2, K3, K4; a problem a seed
+    for s in range(S):
+        for lv, (args, its) in enumerate(lm_problems(device, n=sizes.get("lm", 256), seed=s)):
+            per[lv].append((f"lm_align_level[S{S}-L{lv}]", (SE3.identity(device=device), *args),
+                            dict(max_iters=its, min_rel_decrease=2e-3)))
+        per[4].append(("fa_align_batch", tuple(fa_problem(device, n=sizes.get("fa", 150), seed=1 + s)), {}))
+        per[5].append(("pose_refine", (SE3.identity(device=device),
+                                       *pose_problem(device, n=sizes.get("pose", 150), seed=2 + s)[0]), {}))
+    per.append([("depth_scores", tuple(depth_problem(device, filters=sizes.get("depth_filters", 512),
+                                                     seed=3 + s)), {}) for s in range(S)])
+    out = []
+    for problems in per:
+        name, _, kw = problems[0]
+        if not name.startswith("lm_align_level"):
+            name = f"{name}[S{S}]"
+        stacked = tuple(T0 if isinstance(a, SE3) else
+                        torch.stack([p[1][k] for p in problems]) if isinstance(a, torch.Tensor) else a
+                        for k, a in enumerate(problems[0][1]))
+        out.append((name, stacked, kw, [p[1] for p in problems]))
+    return out
+
+
+def batched_call(name: str, stacked: tuple, kw: dict) -> Callable:
+    """The wrapper under ``torch.func.vmap`` over the leading axis of the
+    tensor arguments (the floats go in as they are): on the card, one launch
+    of the batched kernel. Cut to the outputs that are compared."""
+    _, wrapper, _, n_out = _OPS[name.split("[")[0]]
+    dims = tuple(None if isinstance(a, (int, float)) else 0 for a in stacked)
+    return lambda: torch.func.vmap(lambda *a: wrapper(*a, **kw), in_dims=dims)(*stacked)[:n_out]
+
+
+def pick(out, s: int) -> tuple:
+    """Problem ``s`` of a batched call's outputs (``batched_call``)."""
+    return tuple(SE3(x.rotation[s], x.translation[s]) if isinstance(x, SE3) else x[s] for x in out)
+
+
 def problem_shapes(name: str, args: tuple) -> Dict[str, int]:
     """The ``shapes`` of ``bound_ms`` for a problem of ``kernel_problems``."""
     base = name.split("[")[0]
     if base == "pose_refine":
         return {"N": args[1].shape[0]}
     windows, table = (args[1], args[2]) if base == "lm_align_level" else (args[0], args[1])
-    return {"N": windows.shape[0], "WH": windows.shape[1], "WW": windows.shape[2],
-            "P2": table.shape[1]}
+    shapes = {"N": windows.shape[0], "WH": windows.shape[1], "WW": windows.shape[2],
+              "P2": table.shape[1]}
+    if base == "depth_scores":
+        patch = math.isqrt(table.shape[1])
+        shapes["win_bytes"] = footprint_bytes(args[2], patch, windows.shape[1], windows.shape[2])
+    return shapes
+
+
+def footprint_bytes(offs: torch.Tensor, patch: int, WH: int, WW: int, sector: int = 32) -> int:
+    """The bytes K4 must read of its float32 windows (R, WH, WW): for each
+    row, the ``sector``-byte sectors that its bilinear footprint touches —
+    ``patch`` + 1 columns and rows from the floor of the patch's corner
+    (``offs[r]`` less ``patch // 2``), cut to the window. A window starts on
+    a sector (WH·WW·4 is a multiple of 32 at every shape the port runs)."""
+    corner = torch.floor(offs.double().cpu() - patch // 2).long()  # (R, 2): x, y
+    x0, x1 = corner[:, 0].clamp(0, WW - 1), (corner[:, 0] + patch).clamp(0, WW - 1)
+    y0, y1 = corner[:, 1].clamp(0, WH - 1), (corner[:, 1] + patch).clamp(0, WH - 1)
+    inside = ((corner[:, 0] + patch >= 0) & (corner[:, 0] < WW)
+              & (corner[:, 1] + patch >= 0) & (corner[:, 1] < WH))
+    h = torch.arange(WH)[None, :]  # every window row; those of the footprint count
+    touched = (h >= y0[:, None]) & (h <= y1[:, None]) & inside[:, None]
+    first = (h * WW + x0[:, None]) * 4 // sector
+    last = ((h * WW + x1[:, None]) * 4 + 3) // sector
+    return int(((last - first + 1) * touched).sum()) * sector
 
 
 def case_calls(name: str, args: tuple, kw: dict) -> Tuple[Callable, Callable]:
@@ -436,9 +510,9 @@ def kernel_launcher(name: str, args: tuple, kw: dict):
 
 def cold_launches(name: str, args: tuple, kw: dict, nbytes: int) -> List[Callable]:
     """Launches of the problem on copies of its tensors, as many as together
-    hold twice the L2 cache (``nbytes``: what one call moves): taken in turn,
-    each finds its inputs in device memory, not in the cache, which is what
-    ``bound_ms`` assumes of every byte."""
-    copies = -(-2 * L2_BYTES // nbytes)
+    hold twice the L2 cache and at least two (``nbytes``: what one call
+    moves): taken in turn, each finds its inputs in device memory, not in
+    the cache, which is what ``bound_ms`` assumes of every byte."""
+    copies = max(2, -(-2 * L2_BYTES // nbytes))
     clone = lambda a: a.clone() if isinstance(a, torch.Tensor) else a  # noqa: E731
     return [kernel_launcher(name, tuple(clone(a) for a in args), kw)[0] for _ in range(copies)]

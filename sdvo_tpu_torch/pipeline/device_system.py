@@ -710,8 +710,15 @@ class DeviceSystem:
         imgs = np.stack(self._buffer[:n]).reshape(n_supersteps, per, *self._buffer[0].shape)
         self._buffer = self._buffer[n:]
         self.state, outs = self.vo.run_chunk(self.state, torch.as_tensor(imgs, device=self.device))
-        outs = FrameOut(*[x.cpu().numpy() for x in outs])
-        n_emit = n if n_real_tail is None else (n - per + n_real_tail)
+        self._emit(FrameOut(*[x.cpu().numpy() for x in outs]),
+                   n if n_real_tail is None else (n - per + n_real_tail))
+        if bool(self.state.failed):
+            self._relocalize()
+
+    def _emit(self, outs: FrameOut, n_emit: int):
+        """Append the first ``n_emit`` frames of a chunk's outputs (numpy,
+        leading (C, period) axes) to ``trajectory`` and ``metrics``."""
+        per = self.scfg.period
         for i in range(n_emit):
             c, p = divmod(i, per)
             ok = bool(outs.ok[c, p])
@@ -725,8 +732,6 @@ class DeviceSystem:
                 "n_features": int(outs.n_matches[c, p]), "n_points": int(outs.n_points[c, p]),
                 "n_filters": int(outs.n_filters[c, p]), "align_rmse": float(outs.rmse[c, p]),
             })
-        if bool(self.state.failed):
-            self._relocalize()
 
     def _relocalize(self):
         """At a chunk boundary after a failure: unpack to the host, whose

@@ -142,14 +142,16 @@ def test_state_round_trip(runs):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port (the CLI included) imports where neither JAX
-    nor the JAX package can be imported."""
+    """Every module of the port (the CLI and the multi-sequence package
+    ``parallel`` included) imports where neither JAX nor the JAX package can
+    be imported."""
     code = ("import sys; sys.modules['jax'] = None; sys.modules['sdvo_tpu'] = None; "
             "import importlib, pkgutil, sdvo_tpu_torch; "
             "names = [m.name for m in pkgutil.walk_packages(sdvo_tpu_torch.__path__, 'sdvo_tpu_torch.')]; "
             "[importlib.import_module(n) for n in names]; "
             "assert 'sdvo_tpu_torch.main' in names and 'sdvo_tpu_torch.pipeline.system' in names "
-            "and len(names) >= 40, names; print('ok')")
+            "and 'sdvo_tpu_torch.parallel.multi_seq' in names and len(names) >= 40, names; "
+            "import sdvo_tpu_torch.parallel; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=__import__("os").path.dirname(__import__("os").path.dirname(__file__)))
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

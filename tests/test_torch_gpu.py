@@ -13,7 +13,7 @@ import functools
 import pytest
 import torch
 
-from sdvo_tpu_torch.ops import fa_align, selfcheck
+from sdvo_tpu_torch.ops import depth_scores, fa_align, lm_align, pose_refine, selfcheck
 
 SMALL = {"lm": 64, "fa": 32, "pose": 40, "depth_filters": 64}
 # the host-* cases are K1 at the host path's shape: 512 features (more residuals
@@ -39,6 +39,20 @@ def test_kernel_matches_plain_on_card(case):
     torch.cuda.synchronize()
     err, ok = selfcheck.agrees(case, got, want)
     assert ok, (case, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["lm_align_level[L3]", "fa_align_batch", "pose_refine", "depth_scores"])
+def test_launch_holds_every_tensor_it_writes(case):
+    """A launch keeps alive every tensor whose pointer it holds, its outputs
+    included: ``selfcheck.cold_launches`` keeps launches without their
+    outputs, which must not write into memory the allocator hands on (other
+    copies' inputs, which then change the work a launch does)."""
+    dev = _cuda()
+    name, args, kw = next(p for p in selfcheck.kernel_problems(dev, SMALL) if p[0] == case)
+    launch, outs = selfcheck.kernel_launcher(name, args, kw)
+    held = {t.data_ptr() for t in launch.tensors}
+    assert outs and all(o.data_ptr() in held for o in outs), case
 
 
 # K1, K2 and K3 at the sizes their thread mappings make interesting
@@ -134,3 +148,107 @@ def test_host_system_in_float64_on_the_card():
                        "KEYFRAME"], results
     assert system.filters.mu.dtype == torch.float64 and system.n_local_ba >= 1
     assert lm_align.launches - before[0] == 4 * 6 and lm_align.plain_cuda_calls == before[1]
+
+
+# each kernel's one launch for S = 8 stacked problems (``torch.func.vmap`` of
+# its wrapper, as the multi-sequence path calls it), problem by problem
+MODULES = {"lm_align_level": lm_align, "fa_align_batch": fa_align, "pose_refine": pose_refine,
+           "depth_scores": depth_scores}
+BATCHED = ["lm_align_level[S8-L0]", "lm_align_level[S8-L1]", "lm_align_level[S8-L2]",
+           "lm_align_level[S8-L3]", "fa_align_batch[S8]", "pose_refine[S8]", "depth_scores[S8]"]
+
+
+@functools.lru_cache(maxsize=None)
+def _batched_problems():
+    """K1 at the main path's 256 features: at 64, two of the eight textures
+    (seeds 2 and 5) put the plain version and the kernel, launched alone, on
+    different LM paths (a stall test at its edge)."""
+    return {p[0]: p for p in selfcheck.batched_problems(torch.device("cuda"), 8, dict(SMALL, lm=256))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BATCHED)
+def test_batched_kernel_matches_plain_per_problem(case):
+    """One launch for the eight problems; each problem's result is bit for
+    bit the kernel's on that problem launched alone, and agrees with the
+    plain version run on it, within ``selfcheck.agrees``'s tolerance."""
+    _cuda()
+    name, stacked, kw, problems = _batched_problems()[case]
+    module = MODULES[case.split("[")[0]]
+    before = module.launches
+    got = selfcheck.batched_call(name, stacked, kw)()
+    torch.cuda.synchronize()
+    assert module.launches == before + 1
+    for s, p in enumerate(problems):
+        kernel, plain = selfcheck.case_calls(case, p, kw)
+        assert selfcheck.max_abs_err(selfcheck.pick(got, s), kernel()) == 0.0, (case, s)
+        err, ok = selfcheck.agrees(case, selfcheck.pick(got, s), plain())
+        assert ok, (case, s, err)
+
+
+@pytest.mark.gpu
+def test_multi_sequence_system_on_the_card():
+    """``MultiSequenceSystem`` (the card by default) over two textures of the
+    KITTI-sized ridge scene (``chip_smoke.MULTI_SEEDS``' first two), chunks
+    of two supersteps: every frame tracked
+    with the keyframe cadence; over the joint chunks K1 launched four times a
+    frame step and K2, K3, K4 once, for both sequences together, with no
+    plain version on a CUDA tensor; each sequence gives the results of its
+    ``DeviceSystem`` run alone."""
+    from sdvo_tpu_torch.config import load_config
+    from sdvo_tpu_torch.dataio.synthetic import render_bench_sequences
+    from sdvo_tpu_torch.parallel import MultiSequenceSystem
+    from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
+
+    _cuda()
+    config = load_config(overrides={  # bench.py's
+        "initialization": {"disparity_threshold": 3, "threshold_gradient_magnitude": 20}})
+    seqs = [r[0] for r in render_bench_sequences((0, 4), 2 + 2 * 6 + 3)]
+    ms = MultiSequenceSystem(config, 2, supersteps_per_chunk=2)
+    ms.bootstrap(seqs)
+    before = {k: (m.launches, m.plain_cuda_calls) for k, m in MODULES.items()}
+    ms.joint(seqs)
+    launches = {k: m.launches - before[k][0] for k, m in MODULES.items()}
+    results = ms.tail(seqs)
+    steps = ms.frame_steps
+    assert steps == 12
+    assert launches == {"lm_align_level": 4 * steps, "fa_align_batch": steps, "pose_refine": steps,
+                        "depth_scores": steps}, launches
+    assert all(m.plain_cuda_calls == before[k][1] for k, m in MODULES.items())
+    for seq, res in zip(seqs, results):
+        got = [m["result"] for m in res["metrics"]]
+        assert got == ["KEYFRAME", "KEYFRAME"] + ["SUCCESS", "SUCCESS", "KEYFRAME"] * 5, got
+        alone = DeviceSystem(config, supersteps_per_chunk=2)
+        for i, f in enumerate(seq):
+            alone.add_image(f, float(i))
+        alone.finish()
+        assert [m["result"] for m in alone.metrics] == got
+
+
+@pytest.mark.gpu
+def test_multi_sequence_members_are_isolated_on_the_card():
+    """Each sequence owns its map on the card as on the CPU: in the mode
+    ``MultiSequenceSystem`` runs in (deterministic algorithms on the card),
+    sequence 0 (texture 0 of the KITTI-sized ridge scene) gets the same bits
+    beside texture 4 as beside texture 12 over two joint chunks of two
+    supersteps. In slot 1 instead of slot 0 it gets the same result for
+    every frame, not the same bits: batched cuBLAS products (the first is
+    ``se3.transform``'s einsum) round a member by its slot, and the tracker
+    carries that on (``chip_smoke.py`` prints how far)."""
+    import numpy as np
+
+    from sdvo_tpu_torch.config import load_config
+    from sdvo_tpu_torch.dataio.synthetic import render_bench_sequences
+    from sdvo_tpu_torch.parallel import MultiSequenceSystem
+
+    _cuda()
+    config = load_config(overrides={  # bench.py's
+        "initialization": {"disparity_threshold": 3, "threshold_gradient_magnitude": 20}})
+    x, y, z = [r[0] for r in render_bench_sequences((0, 4, 12), 2 + 2 * 6)]
+
+    def run(pair):
+        return MultiSequenceSystem(config, 2, supersteps_per_chunk=2).run(pair)
+
+    a, b, c = run([x, y]), run([x, z]), run([y, x])
+    np.testing.assert_array_equal(np.asarray(a[0]["trajectory"]), np.asarray(b[0]["trajectory"]))
+    assert [m["result"] for m in a[0]["metrics"]] == [m["result"] for m in c[1]["metrics"]]

@@ -135,8 +135,8 @@ def test_entry_point_on_the_cpu_when_asked(entry):
     ("lm_align_level", dict(N=256, WH=16, WW=32, P2=25), 10, 709_744, 7_601_088, 2.12e-4, "bytes"),
     ("fa_align_batch", dict(N=150, WH=24, WW=32, P2=25), None, 510_300, 3_765_000, 1.52e-4, "bytes"),
     ("pose_refine", dict(N=150), 8, 4_312, 520_326, 7.77e-6, "operations"),
-    ("depth_scores", dict(N=8192, WH=12, WW=32, P2=49), None, 14_319_616, 7_225_344, 4.27e-3,
-     "bytes"),
+    ("depth_scores", dict(N=8192, WH=12, WW=32, P2=49, win_bytes=3_928_064), None, 5_664_768,
+     7_225_344, 1.69e-3, "bytes"),
 ], ids=["K1-4it", "K1-10it", "K2", "K3", "K4"])
 def test_bound_ms_at_main_path_shapes(name, shapes, iterations, nbytes, flops, ms, by):
     """A pure shape computation: K1 ≈ 0.71 MB → 0.21 µs by bytes at every
@@ -144,10 +144,28 @@ def test_bound_ms_at_main_path_shapes(name, shapes, iterations, nbytes, flops, m
     0.15 µs (the live mask and the converged flag one byte a feature; its
     ≈ 3.8 MFLOP — eleven evaluations with one robust scale of two ten-step
     bisections each, ten H/g passes — are 0.056 µs); K3 4.3 KB is 1.3 ns of
-    bytes but ≈ 0.52 MFLOP, 7.8 ns, of operations; K4 ≈ 14.3 MB → 4.3 µs."""
+    bytes but ≈ 0.52 MFLOP, 7.8 ns, of operations; K4 ≈ 5.7 MB → 1.7 µs
+    (of its 12.6 MB of windows the 3.9 MB of sectors that the main path's
+    footprints touch, ``test_k4_bound_counts_the_sectors_its_footprints_touch``)."""
     bound = selfcheck.bound_ms(name, shapes, iterations)
     assert bound.bytes == nbytes
     assert bound.flops == flops
     assert bound.by == by
     assert bound.ms == pytest.approx(ms, rel=0.01)
     assert bound.ms == max(bound.bytes / 3.35e12, bound.flops / 67e12) * 1e3
+
+
+def test_k4_bound_counts_the_sectors_its_footprints_touch():
+    """K4 reads of each window only the 32-byte sectors of its 8×8 bilinear
+    footprint: a corner on a sector's start takes one sector a row, one
+    inside a sector two, one past the window nothing, one over its edge only
+    the rows and columns inside; the main path's problem (``depth_problem``,
+    8192 rows at patch 7 in 12×32 windows) touches 3,928,064 bytes of its
+    12,582,912."""
+    offs = torch.tensor([[3.5, 3.5],     # corner (0, 0): 8 rows × sector 0
+                         [8.25, 4.0],    # corner (5, 1): 8 rows × sectors 0-1
+                         [-20.0, 4.0],   # left of the window: nothing
+                         [30.0, 10.5]])  # corner (27, 7): rows 7-11, columns 27-31
+    assert selfcheck.footprint_bytes(offs, 7, 12, 32) == (8 + 16 + 0 + 5) * 32
+    shapes = selfcheck.problem_shapes("depth_scores", tuple(selfcheck.depth_problem(torch.device("cpu"))))
+    assert shapes == dict(N=8192, WH=12, WW=32, P2=49, win_bytes=3_928_064)
