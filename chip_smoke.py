@@ -57,16 +57,13 @@ alone, without the package beside it, it fails at its first import of
 ``sdvo_tpu_torch`` (exit code 1).
 """
 
+import hashlib
 import json
 import os
 import sys
 import time
 
 import numpy as np
-
-# MultiSequenceSystem runs its joint chunks with PyTorch's deterministic
-# algorithms, which want cuBLAS's fixed workspace, read at its first call
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 SOURCES = {
     "lm_align_level": ("sdvo_tpu_torch/csrc/lm_align.cu", "sdvo_tpu/ops/pallas_lm.py:410"),
@@ -75,10 +72,7 @@ SOURCES = {
     "depth_scores": ("sdvo_tpu_torch/csrc/depth_scores.cu", "sdvo_tpu/ops/pallas_depth.py:57"),
 }
 K1_HOST_ROW = "lm_align_level[N512]"  # K1 at the host path's shape: a row of its own
-SOURCES[K1_HOST_ROW] = SOURCES["lm_align_level"]
 BATCH = 8  # sequences of the multi-sequence path, and problems of a batched launch
-for _name in ("lm_align_level", "fa_align_batch", "pose_refine", "depth_scores"):
-    SOURCES[f"{_name}[S{BATCH}]"] = SOURCES[_name]
 # texture seeds of the multi-sequence scene: 0-7, each seed that fails the
 # main path's gates alone through DeviceSystem replaced by the next that
 # passes (tools/check_bench_seeds.py: seeds 1, 2, 3, 5, 9 and 10 track with
@@ -109,7 +103,7 @@ def check_kernels(device, failures):
     print("library_ms: none for any of the four kernels: no single PyTorch call computes a whole "
           "LM solve or a fused sample-centre-ZSSD pass", flush=True)
     rows = {}
-    for name, args, kw in selfcheck.kernel_problems(device):
+    for name, args, kw in selfcheck.kernel_problems(device) + selfcheck.depth_extra_problems(device):
         base = name.split("[")[0]
         kernel, plain = selfcheck.case_calls(name, args, kw)
         got, want = kernel(), plain()
@@ -121,7 +115,7 @@ def check_kernels(device, failures):
         iterations = None
         if base in ("lm_align_level", "pose_refine"):
             iterations = int(outs[1][2])  # what the kernel reports of this problem
-        bound = selfcheck.bound_ms(name, selfcheck.problem_shapes(name, args), iterations)
+        bound = selfcheck.bound_ms(name, selfcheck.problem_shapes(name, args, kw), iterations)
         cold_ms = None
         if bound.by == "bytes" and bound.ms > empty_ms:
             cold_ms = selfcheck.device_ms(selfcheck.cold_launches(name, args, kw, bound.bytes))
@@ -140,7 +134,8 @@ def check_kernels(device, failures):
               flush=True)
         if not ok:
             failures.append(f"{name} disagrees with its plain version: {err}")
-        row = K1_HOST_ROW if name.startswith(selfcheck.HOST_LM) else base
+        # K1's levels sum to one row a frame; K4's extra shapes are rows of their own
+        row = K1_HOST_ROW if name.startswith(selfcheck.HOST_LM) else name if "[" in name and base == "depth_scores" else base
         r = rows.setdefault(row, {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
                                    "bound_ms": 0.0, "t_bytes": 0.0, "t_flops": 0.0,
                                    "device_ms_cold": cold_ms})
@@ -208,7 +203,7 @@ def check_batched_kernels(device, failures, rows, empty_ms: float):
         bounds = []
         for s, p in enumerate(problems):
             its = int(outs[1][s, 2]) if base in ("lm_align_level", "pose_refine") else None
-            bounds.append(selfcheck.bound_ms(name, selfcheck.problem_shapes(name, p), its))
+            bounds.append(selfcheck.bound_ms(name, selfcheck.problem_shapes(name, p, kw), its))
         bound = sum(b.ms for b in bounds)
         cold_ms = None
         if bounds[0].by == "bytes" and bound > empty_ms:
@@ -320,20 +315,16 @@ def _gate_tracking(name, metrics, trajectory, T_true):
     return ate, path, drift
 
 
-def run_main_path(card: str, frames, T_true, deterministic: bool = False):
-    """``DeviceSystem`` over the bench scene with its gates; ``deterministic``
-    runs it with PyTorch's deterministic algorithms, the mode of
-    ``MultiSequenceSystem``'s joint chunks, to set their frames/s against."""
-    import contextlib
-
-    from sdvo_tpu_torch.device import deterministic_algorithms
-
-    name = "main path, deterministic" if deterministic else "main path"
-    with deterministic_algorithms() if deterministic else contextlib.nullcontext():
-        return _run_main_path(card, frames, T_true, name)
+def trajectory_digest(trajectory) -> str:
+    """A digest of a trajectory's bits (a failed frame's None as NaNs)."""
+    poses = np.asarray([np.full((4, 4), np.nan) if T is None else T for T in trajectory], np.float64)
+    return hashlib.sha256(poses.tobytes()).hexdigest()[:16]
 
 
-def _run_main_path(card: str, frames, T_true, name: str):
+def run_main_path(card: str, frames, T_true, name: str = "main path"):
+    """``DeviceSystem`` over the bench scene, in the mode it ships with
+    (deterministic algorithms on the card), with its gates. Returns (its
+    launches, the frames after the bootstrap, the system, frames/s)."""
     import torch
 
     from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
@@ -363,7 +354,8 @@ def _run_main_path(card: str, frames, T_true, name: str):
     print(f"{name}: {n_frames} frames, bootstrap {t_boot:.2f} s, chunk seconds "
           f"{[round(s, 4) for s in chunk_s]}, ATE {ate:.4f} m over {path:.2f} m "
           f"({100 * drift:.3f} % drift; with the first kernels of K1 and K3 it was 0.0016 m, "
-          f"0.058 %), launches {launches}", flush=True)
+          f"0.058 %), launches {launches}, trajectory digest {trajectory_digest(ds.trajectory)}",
+          flush=True)
     for k, n in launches.items():
         _require(n > 0, f"kernel {k} never launched on the {name}")
     _require(not any(counts.plain_on_cuda.values()),
@@ -514,7 +506,7 @@ def _multi_fps(ms):
     return agg, agg / ms.n_seq
 
 
-def run_multi_seq(card: str, seqs, T_true, main_ds, main_fps: float, main_fps_det: float):
+def run_multi_seq(card: str, seqs, T_true, main_ds, main_fps: float, main_fps_again: float):
     """``MultiSequenceSystem`` over ``BATCH`` sequences on the card, then over
     sequence 0 alone. Returns the joint phase's launches and frame steps."""
     from sdvo_tpu_torch.parallel import MultiSequenceSystem, vmap_fallbacks
@@ -560,9 +552,8 @@ def run_multi_seq(card: str, seqs, T_true, main_ds, main_fps: float, main_fps_de
     agg1, _ = _multi_fps(one)
     print(f"multi-sequence frames/s ({card}; joint chunks of {SUPERSTEPS_PER_CHUNK * PER} frame steps, "
           f"two timed after one warm-up): S = {len(seqs)}: {agg:.2f} aggregate, {per_seq:.2f} a sequence; "
-          f"S = 1: {agg1:.2f}; the main path (DeviceSystem): {main_fps:.2f}, {main_fps_det:.2f} with "
-          f"deterministic algorithms as the joint chunks; bootstrap of {len(seqs)} sequences "
-          f"{t_boot:.2f} s", flush=True)
+          f"S = 1: {agg1:.2f}; the main path (DeviceSystem): {main_fps:.2f} and {main_fps_again:.2f} in "
+          f"its two runs; bootstrap of {len(seqs)} sequences {t_boot:.2f} s", flush=True)
     return launches, steps
 
 
@@ -577,16 +568,16 @@ def _centres(trajectory):
 def run_isolation(seqs):
     """Each sequence of ``MultiSequenceSystem`` owns its map: sequence 0 gets
     the same bits beside sequence 1 as beside sequence 2 (S = 2, two joint
-    chunks). In the other slot it gets the same result for every frame, not
-    the same bits: batched cuBLAS products round a member by its slot, and
-    the tracker carries that on (printed: how far its camera centres move)."""
+    chunks), and the same bits in slot 1 as in slot 0 (each sequence keeps
+    its RANSAC seed, so it bootstraps alike in either slot): no op rounds a
+    member by its place in the batch."""
     from sdvo_tpu_torch.parallel import MultiSequenceSystem
 
-    def run(pair):
-        ms = MultiSequenceSystem(bench_config(), 2, supersteps_per_chunk=ISO_SUPERSTEPS)
+    def run(pair, seeds):
+        ms = MultiSequenceSystem(bench_config(), 2, supersteps_per_chunk=ISO_SUPERSTEPS, seeds=seeds)
         return ms.run([s[:ISO_FRAMES] for s in pair])
 
-    a, b, c = run([seqs[0], seqs[1]]), run([seqs[0], seqs[2]]), run([seqs[1], seqs[0]])
+    a, b, c = run([seqs[0], seqs[1]], [0, 1]), run([seqs[0], seqs[2]], [0, 2]), run([seqs[1], seqs[0]], [1, 0])
     same = np.array_equal(np.asarray(a[0]["trajectory"]), np.asarray(b[0]["trajectory"]))
     ca, cc = _centres(a[0]["trajectory"]), _centres(c[1]["trajectory"])
     path = float(np.sum(np.linalg.norm(np.diff(ca, axis=0), axis=-1)))
@@ -597,8 +588,7 @@ def run_isolation(seqs):
           f"{'the same bits' if slot_bits else 'other bits'}, centres at most {apart:.3e} m apart "
           f"({100 * apart / path:.4f} % of the {path:.2f} m path)", flush=True)
     _require(same, "a sequence's result depends on another sequence of its batch")
-    _require([m["result"] for m in a[0]["metrics"]] == [m["result"] for m in c[1]["metrics"]],
-             "a sequence's frame results changed with its slot")
+    _require(slot_bits, "a sequence's trajectory changed with its slot in the batch")
 
 
 def main() -> int:
@@ -636,15 +626,19 @@ def main() -> int:
     launches, steady_frames, main_ds, main_fps = run_main_path(card, frames, T_true)
     launches_host, host_frames = run_host_path(card, frames, T_true)
     run_recovery(card, frames)
-    main_fps_det = run_main_path(card, frames, T_true, deterministic=True)[3]
-    launches_multi, multi_steps = run_multi_seq(card, seqs, T_true, main_ds, main_fps, main_fps_det)
+    _, _, again_ds, main_fps_again = run_main_path(card, frames, T_true, "main path, second run")
+    same = np.array_equal(np.asarray(main_ds.trajectory), np.asarray(again_ds.trajectory))
+    print(f"main path determinism: the two runs give {'the same' if same else 'DIFFERENT'} trajectory bits "
+          f"({trajectory_digest(main_ds.trajectory)}, {trajectory_digest(again_ds.trajectory)})", flush=True)
+    _require(same, "two runs of the main path gave different trajectories")
+    launches_multi, multi_steps = run_multi_seq(card, seqs, T_true, main_ds, main_fps, main_fps_again)
     run_isolation(seqs)
     _require(not failures, "; ".join(failures))
 
     kernels = []
     for name, r in rows.items():
-        src, replaces = SOURCES[name]
         base = name.split("[")[0]
+        src, replaces = SOURCES[base]
         # K1's row at the host path's shape counts that path's launches, the
         # batched rows the multi-sequence path's (a frame step: every sequence)
         on_path, n_path = ((launches_host, host_frames) if name == K1_HOST_ROW

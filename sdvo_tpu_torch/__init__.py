@@ -18,4 +18,5 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
+from sdvo_tpu_torch import device as _device  # noqa: E402,F401  (sets CUBLAS_WORKSPACE_CONFIG)
 from sdvo_tpu_torch.config import Config, load_config  # noqa: E402,F401

@@ -119,10 +119,9 @@ def epipolar_search(T_cur_ref: SE3, cur: torch.Tensor, ref_patches, bearings_ref
     Fn, K = locs.shape[:2]
     locs_f = locs.reshape(Fn * K, 2)
     win, org, ok_w = window_gather(cur, locs_f, win_h=patch_size + 5)
-    cref = ref_warped - ref_warped.mean(dim=-1, keepdim=True)
-    cref_rep = torch.repeat_interleave(cref.to(torch.float32), K, dim=0)
-    sc, ok_s = depth_scores(win.to(torch.float32), cref_rep,
-                            (locs_f - org).to(torch.float32).contiguous(), patch=patch_size)
+    cref = ref_warped - ref_warped.mean(dim=-1, keepdim=True)  # one patch a filter: rows f·K .. f·K + K − 1
+    sc, ok_s = depth_scores(win.to(torch.float32), cref.to(torch.float32).contiguous(),
+                            (locs_f - org).to(torch.float32).contiguous(), patch=patch_size, steps=K)
     scores = sc.reshape(Fn, K).to(dtype)
     patch_ok = (ok_w & ok_s).reshape(Fn, K)
     scores = torch.where(patch_ok, scores, torch.full_like(scores, float("inf")))

@@ -1,11 +1,19 @@
 """Where the port's entry points run: on the CUDA card unless the caller asks
-for another device."""
+for another device; and how they run there: with PyTorch's deterministic
+algorithms (``deterministic_on``), so that a run gives the same bits every
+time, as the reference's compiled scan does."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
+
+# cuBLAS is reproducible only with a fixed workspace, which it reads at the
+# process's first cuBLAS call: the package sets it when it is imported (a
+# value the caller set stays)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -28,7 +36,8 @@ def deterministic_algorithms():
     them. An op without a deterministic form warns instead of raising. Memory
     from ``torch.empty`` stays unfilled, as outside. cuBLAS is reproducible
     only with ``CUBLAS_WORKSPACE_CONFIG`` (``:4096:8``) set before the
-    process's first cuBLAS call."""
+    process's first cuBLAS call: importing the package sets it unless the
+    caller has."""
     fill = torch.utils.deterministic.fill_uninitialized_memory
     was = torch.are_deterministic_algorithms_enabled()
     warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
@@ -39,3 +48,10 @@ def deterministic_algorithms():
     finally:
         torch.use_deterministic_algorithms(was, warn_only=warn_only)
         torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def deterministic_on(device: torch.device):
+    """``deterministic_algorithms()`` where ``device`` is a CUDA card, nothing
+    on the CPU (whose ops are deterministic already): the mode every entry
+    point runs its device work in."""
+    return deterministic_algorithms() if device.type == "cuda" else contextlib.nullcontext()

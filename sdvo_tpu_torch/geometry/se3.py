@@ -4,6 +4,12 @@ Rotation matrix ``(..., 3, 3)`` + translation ``(..., 3)`` in a NamedTuple;
 tangent convention ``tau = [upsilon, omega]`` (translation first), as Sophus
 and the JAX reference. Nothing on the port's path needs gradients, so the
 small-angle branches are plain ``torch.where`` selects.
+
+Every 3×3 product is written out as three-term sums of elementwise products
+(``_mm``, ``_mv``), not as a matmul or an einsum: a batched matmul (what
+``torch.func.vmap`` makes of one, or a call on a stack of poses) may round a
+member by its place in the batch, and elementwise ops give each element the
+same bits at any batch size and in any slot, on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -14,6 +20,18 @@ from typing import NamedTuple
 import torch
 
 _EPS = 1e-8
+
+
+def _mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B of (..., 3, 3) matrices (broadcasting), as
+    ``A[i,0]·B[0,j] + A[i,1]·B[1,j] + A[i,2]·B[2,j]`` summed left to right."""
+    return (A[..., :, 0, None] * B[..., None, 0, :] + A[..., :, 1, None] * B[..., None, 1, :]
+            + A[..., :, 2, None] * B[..., None, 2, :])
+
+
+def _mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A @ v of (..., 3, 3) by (..., 3) (broadcasting), summed as ``_mm``."""
+    return A[..., 0] * v[..., 0, None] + A[..., 1] * v[..., 1, None] + A[..., 2] * v[..., 2, None]
 
 
 class SE3(NamedTuple):
@@ -34,20 +52,20 @@ class SE3(NamedTuple):
 
     def compose(self, other: "SE3") -> "SE3":
         """self ∘ other (apply ``other`` first)."""
-        R = self.rotation @ other.rotation
-        t = (self.rotation @ other.translation[..., None])[..., 0] + self.translation
+        R = _mm(self.rotation, other.rotation)
+        t = _mv(self.rotation, other.translation) + self.translation
         return SE3(R, t)
 
     def inverse(self) -> "SE3":
         Rt = self.rotation.transpose(-1, -2)
-        return SE3(Rt, -(Rt @ self.translation[..., None])[..., 0])
+        return SE3(Rt, -_mv(Rt, self.translation))
 
     def apply(self, points: torch.Tensor) -> torch.Tensor:
         """Transform points (..., 3) (broadcasts over leading dims)."""
-        return torch.einsum("...ij,...j->...i", self.rotation, points) + self.translation
+        return _mv(self.rotation, points) + self.translation
 
     def rotate(self, vecs: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("...ij,...j->...i", self.rotation, vecs)
+        return _mv(self.rotation, vecs)
 
 
 def hat(w: torch.Tensor) -> torch.Tensor:
@@ -79,7 +97,7 @@ def so3_exp(omega: torch.Tensor) -> torch.Tensor:
     theta2_s = torch.where(small, torch.ones_like(theta2), theta2)
     theta = torch.sqrt(theta2_s)
     W = hat(omega)
-    W2 = W @ W
+    W2 = _mm(W, W)
     a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
     b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2_s)
     return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * W2
@@ -116,7 +134,7 @@ def _left_jacobian(omega: torch.Tensor) -> torch.Tensor:
     theta2_s = torch.where(small, torch.ones_like(theta2), theta2)
     theta = torch.sqrt(theta2_s)
     W = hat(omega)
-    W2 = W @ W
+    W2 = _mm(W, W)
     b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2_s)
     c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
                     (theta - torch.sin(theta)) / (theta2_s * theta))
@@ -129,7 +147,7 @@ def _left_jacobian_inverse(omega: torch.Tensor) -> torch.Tensor:
     theta2_s = torch.where(small, torch.ones_like(theta2), theta2)
     theta = torch.sqrt(theta2_s)
     W = hat(omega)
-    W2 = W @ W
+    W2 = _mm(W, W)
     half = 0.5 * theta
     cot = torch.cos(half) / torch.where(small, torch.ones_like(theta), torch.sin(half))
     k = torch.where(small, 1.0 / 12.0 + theta2 / 720.0, (1.0 - 0.5 * theta * cot) / theta2_s)
@@ -140,12 +158,12 @@ def exp(tau: torch.Tensor) -> SE3:
     """se(3) exp: (..., 6) [upsilon, omega] -> SE3."""
     upsilon, omega = tau[..., :3], tau[..., 3:]
     R = so3_exp(omega)
-    t = (_left_jacobian(omega) @ upsilon[..., None])[..., 0]
+    t = _mv(_left_jacobian(omega), upsilon)
     return SE3(R, t)
 
 
 def log(T: SE3) -> torch.Tensor:
     """SE3 -> (..., 6) [upsilon, omega]."""
     omega = so3_log(T.rotation)
-    upsilon = (_left_jacobian_inverse(omega) @ T.translation[..., None])[..., 0]
+    upsilon = _mv(_left_jacobian_inverse(omega), T.translation)
     return torch.cat([upsilon, omega], dim=-1)

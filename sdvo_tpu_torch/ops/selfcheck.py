@@ -146,16 +146,28 @@ def pose_problem(device, n: int = 150, outliers: int = 10, seed: int = 2):
 
 
 def depth_problem(device, filters: int = 512, steps: int = 16, patch: int = 7, width: int = 1241,
-                  height: int = 376, seed: int = 3):
-    """K4 inputs: (filters·steps) windows of (patch+5) rows, zero-mean
-    reference patches repeated per step, and the sub-pixel offsets."""
+                  height: int = 376, seed: int = 3, edge: bool = False):
+    """K4 inputs: (filters·steps) windows of (patch+5) rows, one zero-mean
+    reference patch a filter (row r reads patch r // steps) and the
+    sub-pixel offsets. With ``edge`` the footprints of two rows in three
+    leave the window (taps outside it read 0, ``ok`` is false): every third
+    row partly, 2–5 px over its left edge or 3–6 px under its bottom edge,
+    and every third row wholly."""
     rng = np.random.default_rng(seed)
     img = torch.from_numpy(rng.uniform(0, 255, (height, width)).astype(np.float32))
-    locs = torch.from_numpy(rng.uniform(20, [width - 20, height - 20], (filters * steps, 2)).astype(np.float32))
+    R = filters * steps
+    locs = torch.from_numpy(rng.uniform(20, [width - 20, height - 20], (R, 2)).astype(np.float32))
     ref = rng.uniform(0, 255, (filters, patch * patch)).astype(np.float32)
     win, org, _ = window_gather(img, locs, win_h=patch + 5)
-    cref = torch.from_numpy(np.repeat(ref - ref.mean(-1, keepdims=True), steps, axis=0))
-    return [t.contiguous().to(device) for t in (win, cref, locs - org)]
+    offs = locs - org
+    if edge:
+        u = torch.from_numpy(rng.uniform(2, 5, R).astype(np.float32))
+        half, WH = patch // 2, win.shape[1]
+        offs[0::6, 0] = half - u[0::6]  # the patch's corner 2-5 px left of the window
+        offs[3::6, 1] = WH - patch + half + 1 + u[3::6]  # its last footprint rows under the bottom
+        offs[1::3] = torch.tensor([-40.0, 30.0])
+    cref = torch.from_numpy(ref - ref.mean(-1, keepdims=True))
+    return [t.contiguous().to(device) for t in (win, cref, offs)]
 
 
 def _flat(out) -> List[torch.Tensor]:
@@ -310,7 +322,8 @@ def bound_ms(name: str, shapes: Dict[str, int], iterations: int = None) -> Bound
     3.35 TB/s, or its float32 operations at 67 TFLOP/s, whichever is larger.
     ``shapes``: ``N``, ``WH``, ``WW``, ``P2`` (rows, window height and width,
     patch area; K3 takes ``N`` alone; K4 also ``win_bytes``, the window bytes
-    its patches read, ``footprint_bytes``). ``iterations`` are the LM iterations
+    its patches read, ``footprint_bytes``, and ``steps``, the rows a
+    reference patch serves, 1 where not given). ``iterations`` are the LM iterations
     the data needed (K1 and K3 report them; K2 is counted at 10, the most a
     feature can need: it is bound by bytes even then, so the features that
     stall earlier do not move its bound)."""
@@ -336,8 +349,9 @@ def bound_ms(name: str, shapes: Dict[str, int], iterations: int = None) -> Bound
         elif base == "depth_scores":
             # of the windows only the 32-byte sectors the bilinear footprints
             # touch (``win_bytes``, counted from the offsets by
-            # ``problem_shapes``); cref, offs and the two outputs whole
-            nbytes = shapes["win_bytes"] + 4 * N * (P2 + 2 + 2)
+            # ``problem_shapes``); cref (one patch a filter of ``steps`` rows),
+            # offs and the two outputs whole
+            nbytes = shapes["win_bytes"] + 4 * (N // shapes.get("steps", 1)) * P2 + 4 * N * (2 + 2)
             flops = N * P2 * (_BILINEAR_FLOPS + 1 + 2 + 3)  # sample, mean, centre, squared difference
         else:
             raise KeyError(name)
@@ -375,7 +389,7 @@ def kernel_problems(device, sizes: Dict[str, int] = None) -> List[Tuple[str, tup
     problems.append(("fa_align_batch", tuple(fa_problem(device, n=sizes.get("fa", 150))), {}))
     problems.append(("pose_refine", (T0, *pose_problem(device, n=sizes.get("pose", 150))[0]), {}))
     problems.append(("depth_scores",
-                     tuple(depth_problem(device, filters=sizes.get("depth_filters", 512))), {}))
+                     tuple(depth_problem(device, filters=sizes.get("depth_filters", 512))), dict(steps=16)))
     return problems
 
 
@@ -410,6 +424,20 @@ def extra_problems(device) -> List[Tuple[str, tuple, dict]]:
     return problems
 
 
+def depth_extra_problems(device) -> List[Tuple[str, tuple, dict]]:
+    """K4 problems at the shapes its thread mapping makes interesting: one
+    filter, a row count that is no multiple of a block's rows, patch 5,
+    footprints that leave the window (zero taps, ``ok`` false) and a patch a
+    row (``steps = 1``) at an odd row count."""
+    problems = []
+    for tag, filters, steps, patch, edge in (("F1", 1, 16, 7, False), ("F37", 37, 16, 7, False),
+                                             ("patch5", 64, 16, 5, False), ("edge", 64, 16, 7, True),
+                                             ("steps1", 37, 1, 7, False)):
+        args = depth_problem(device, filters=filters, steps=steps, patch=patch, edge=edge)
+        problems.append((f"depth_scores[{tag}]", tuple(args), dict(patch=patch, steps=steps)))
+    return problems
+
+
 def batched_problems(device, S: int = 8, sizes: Dict[str, int] = None
                      ) -> List[Tuple[str, tuple, dict, List[tuple]]]:
     """(name, stacked arguments, keyword arguments, the S problems' own
@@ -428,7 +456,7 @@ def batched_problems(device, S: int = 8, sizes: Dict[str, int] = None
         per[5].append(("pose_refine", (SE3.identity(device=device),
                                        *pose_problem(device, n=sizes.get("pose", 150), seed=2 + s)[0]), {}))
     per.append([("depth_scores", tuple(depth_problem(device, filters=sizes.get("depth_filters", 512),
-                                                     seed=3 + s)), {}) for s in range(S)])
+                                                     seed=3 + s)), dict(steps=16)) for s in range(S)])
     out = []
     for problems in per:
         name, _, kw = problems[0]
@@ -455,8 +483,9 @@ def pick(out, s: int) -> tuple:
     return tuple(SE3(x.rotation[s], x.translation[s]) if isinstance(x, SE3) else x[s] for x in out)
 
 
-def problem_shapes(name: str, args: tuple) -> Dict[str, int]:
-    """The ``shapes`` of ``bound_ms`` for a problem of ``kernel_problems``."""
+def problem_shapes(name: str, args: tuple, kw: dict = None) -> Dict[str, int]:
+    """The ``shapes`` of ``bound_ms`` for a problem of ``kernel_problems``
+    (``kw``: its keyword arguments)."""
     base = name.split("[")[0]
     if base == "pose_refine":
         return {"N": args[1].shape[0]}
@@ -466,6 +495,8 @@ def problem_shapes(name: str, args: tuple) -> Dict[str, int]:
     if base == "depth_scores":
         patch = math.isqrt(table.shape[1])
         shapes["win_bytes"] = footprint_bytes(args[2], patch, windows.shape[1], windows.shape[2])
+        if "steps" in (kw or {}):
+            shapes["steps"] = kw["steps"]
     return shapes
 
 

@@ -33,7 +33,7 @@ from sdvo_tpu_torch.ba.bundle_adjustment import BAObservations, BASettings, loca
 from sdvo_tpu_torch.config import Config
 from sdvo_tpu_torch.dataio.evaluate import write_kitti_poses
 from sdvo_tpu_torch.depth.filter import FilterBank, init_filters, update_filters
-from sdvo_tpu_torch.device import resolve_device
+from sdvo_tpu_torch.device import deterministic_on, resolve_device
 from sdvo_tpu_torch.features.detection import detect_gradient_by_value
 from sdvo_tpu_torch.geometry.camera import PinholeCamera
 from sdvo_tpu_torch.geometry.essential import topk_stable
@@ -510,7 +510,12 @@ class DeviceSystem:
 
     ``ransac_uniforms`` and ``seed`` go to the host ``System``. ``device``
     defaults to the CUDA card and raises where there is none;
-    ``device="cpu"`` asks for the CPU (the kernels' plain versions).
+    ``device="cpu"`` asks for the CPU (the kernels' plain versions). On the
+    card every chunk runs with PyTorch's deterministic algorithms
+    (``device.deterministic_on``): the bundle adjustment's float
+    ``index_add``s and ``hscat``'s ``index_put`` would otherwise sum by
+    atomic adds in a new order every run, so a run gives the same bits every
+    time.
     """
 
     def __init__(self, config: Config, camera: Optional[PinholeCamera] = None, seed: int = 0,
@@ -709,7 +714,8 @@ class DeviceSystem:
         n = n_supersteps * per
         imgs = np.stack(self._buffer[:n]).reshape(n_supersteps, per, *self._buffer[0].shape)
         self._buffer = self._buffer[n:]
-        self.state, outs = self.vo.run_chunk(self.state, torch.as_tensor(imgs, device=self.device))
+        with deterministic_on(self.device):
+            self.state, outs = self.vo.run_chunk(self.state, torch.as_tensor(imgs, device=self.device))
         self._emit(FrameOut(*[x.cpu().numpy() for x in outs]),
                    n if n_real_tail is None else (n - per + n_real_tail))
         if bool(self.state.failed):

@@ -15,7 +15,10 @@ with feature alignment (K2), the bearing-residual pose polish
 update (K4) and, on keyframes, windowed Schur BA in float64. Each stage ends
 in a host read, as the reference's does. ``device`` defaults to the CUDA card
 and raises where there is none; ``device="cpu"`` asks for the CPU, where the
-kernels' wrappers take their plain versions.
+kernels' wrappers take their plain versions. On the card a frame's stages
+run with PyTorch's deterministic algorithms (``device.deterministic_on``),
+since the float64 bundle adjustment's ``index_add``s would otherwise sum by
+atomic adds in a new order every run.
 
 The two-view bootstrap runs once a sequence, on the CPU in float64 (the pose
 chain's dtype). ``ransac_uniforms`` (S, N), when given, replace the RANSAC
@@ -50,7 +53,7 @@ from sdvo_tpu_torch.ba.bundle_adjustment import (
 from sdvo_tpu_torch.config import Config
 from sdvo_tpu_torch.dataio.evaluate import write_kitti_poses
 from sdvo_tpu_torch.depth.filter import FilterBank, init_filters, update_filters
-from sdvo_tpu_torch.device import resolve_device
+from sdvo_tpu_torch.device import deterministic_on, resolve_device
 from sdvo_tpu_torch.features.detection import FeatureSelection
 from sdvo_tpu_torch.geometry.camera import PinholeCamera, build_undistort_maps
 from sdvo_tpu_torch.geometry.se3 import SE3
@@ -178,14 +181,15 @@ class System:
         frame = _FrameRecord(self.frame_count, timestamp, pyramid, np.eye(4))
         self.frame_count += 1
 
-        if self.status == SystemStatus.PROCESS_FIRST_FRAME:
-            result = self._process_first_frame(frame)
-        elif self.status == SystemStatus.PROCESS_SECOND_FRAME:
-            result = self._process_second_frame(frame)
-        elif self.status == SystemStatus.PROCESS_NEW_FRAME:
-            result = self._process_new_frame(frame)
-        else:
-            result = self._relocalize_frame(frame)
+        with deterministic_on(self.device):  # local_ba's float index_adds, on the card
+            if self.status == SystemStatus.PROCESS_FIRST_FRAME:
+                result = self._process_first_frame(frame)
+            elif self.status == SystemStatus.PROCESS_SECOND_FRAME:
+                result = self._process_second_frame(frame)
+            elif self.status == SystemStatus.PROCESS_NEW_FRAME:
+                result = self._process_new_frame(frame)
+            else:
+                result = self._relocalize_frame(frame)
 
         self.trajectory.append(None if result == FrameResult.FAILED else frame.pose_wc.copy())
         self.metrics.append(

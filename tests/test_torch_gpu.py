@@ -70,6 +70,45 @@ def _extra_problems():
     return {p[0]: p for p in selfcheck.extra_problems(torch.device("cuda"))}
 
 
+# K4 at the shapes its thread mapping makes interesting
+# (``selfcheck.depth_extra_problems``) and at the main path's and the
+# multi-sequence path's full shapes
+DEPTH = ["depth_scores[F1]", "depth_scores[F37]", "depth_scores[patch5]", "depth_scores[edge]",
+         "depth_scores[steps1]", "depth_scores", "depth_scores[S8]"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DEPTH)
+def test_depth_kernel_matches_plain_at_every_shape(case):
+    """Synchronised after the kernel; scores within ``selfcheck.agrees``'s
+    5e-2 and ``ok`` equal. At the edge shape every third row's footprint is
+    wholly outside its window: its taps read 0, so its score is the sum of
+    |cref| and its ``ok`` is false."""
+    dev = _cuda()
+    if case == "depth_scores[S8]":
+        name, stacked, kw, problems = next(p for p in selfcheck.batched_problems(
+            dev, 8, dict(SMALL, lm=8, depth_filters=512)) if p[0] == case)
+        got = selfcheck.batched_call(name, stacked, kw)()
+        want = [selfcheck.case_calls(case, p, kw)[1]() for p in problems]
+        want = tuple(torch.stack([w[k] for w in want]) for k in range(2))
+    else:
+        problems = selfcheck.depth_extra_problems(dev) + [
+            p for p in selfcheck.kernel_problems(dev, dict(SMALL, depth_filters=512)) if p[0] == case]
+        name, args, kw = next(p for p in problems if p[0] == case)
+        kernel, plain = selfcheck.case_calls(name, args, kw)
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+    torch.cuda.synchronize()
+    err, ok = selfcheck.agrees(case, got, want)
+    assert ok, (case, err)
+    if case == "depth_scores[edge]":
+        cref = torch.repeat_interleave(args[1], kw["steps"], dim=0)
+        outside = torch.arange(len(got[0]), device=dev) % 3 == 1
+        assert not got[1][outside].any()
+        torch.testing.assert_close(got[0][outside], cref[outside].abs().sum(1), rtol=1e-5, atol=1e-3)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", EXTRA)
 def test_lm_kernel_matches_plain_at_extra_shapes(case):
@@ -226,15 +265,45 @@ def test_multi_sequence_system_on_the_card():
 
 
 @pytest.mark.gpu
+def test_device_system_gives_the_same_bits_every_run():
+    """``DeviceSystem`` runs deterministic on the card without the caller
+    doing anything: two runs over the KITTI-sized ridge scene (texture 0,
+    2 + 12 frames, chunks of two supersteps) give the same trajectory bit
+    for bit, and the process has cuBLAS's fixed workspace."""
+    import os
+
+    import numpy as np
+
+    from sdvo_tpu_torch.config import load_config
+    from sdvo_tpu_torch.dataio.synthetic import render_bench_sequences
+    from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
+
+    _cuda()
+    assert os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8"
+    config = load_config(overrides={  # bench.py's
+        "initialization": {"disparity_threshold": 3, "threshold_gradient_magnitude": 20}})
+    frames = render_bench_sequences((0,), 2 + 2 * 6)[0][0]
+    runs = []
+    for _ in range(2):
+        ds = DeviceSystem(config, supersteps_per_chunk=2)
+        for i, f in enumerate(frames):
+            ds.add_image(f, float(i))
+        ds.finish()
+        assert not torch.are_deterministic_algorithms_enabled()  # the mode ends with the chunk
+        runs.append(np.asarray(ds.trajectory))
+    np.testing.assert_array_equal(runs[0], runs[1])
+
+
+@pytest.mark.gpu
 def test_multi_sequence_members_are_isolated_on_the_card():
     """Each sequence owns its map on the card as on the CPU: in the mode
     ``MultiSequenceSystem`` runs in (deterministic algorithms on the card),
     sequence 0 (texture 0 of the KITTI-sized ridge scene) gets the same bits
     beside texture 4 as beside texture 12 over two joint chunks of two
-    supersteps. In slot 1 instead of slot 0 it gets the same result for
-    every frame, not the same bits: batched cuBLAS products (the first is
-    ``se3.transform``'s einsum) round a member by its slot, and the tracker
-    carries that on (``chip_smoke.py`` prints how far)."""
+    supersteps, and the same bits in slot 1 as in slot 0 (each sequence
+    keeping its RANSAC seed): no op rounds a member by its place in the
+    batch (``se3``'s 3×3 products are elementwise; a batched cuBLAS product
+    there did)."""
     import numpy as np
 
     from sdvo_tpu_torch.config import load_config
@@ -246,9 +315,10 @@ def test_multi_sequence_members_are_isolated_on_the_card():
         "initialization": {"disparity_threshold": 3, "threshold_gradient_magnitude": 20}})
     x, y, z = [r[0] for r in render_bench_sequences((0, 4, 12), 2 + 2 * 6)]
 
-    def run(pair):
-        return MultiSequenceSystem(config, 2, supersteps_per_chunk=2).run(pair)
+    def run(pair, seeds):
+        return MultiSequenceSystem(config, 2, supersteps_per_chunk=2, seeds=seeds).run(pair)
 
-    a, b, c = run([x, y]), run([x, z]), run([y, x])
+    a, b, c = run([x, y], [0, 1]), run([x, z], [0, 2]), run([y, x], [1, 0])
     np.testing.assert_array_equal(np.asarray(a[0]["trajectory"]), np.asarray(b[0]["trajectory"]))
+    np.testing.assert_array_equal(np.asarray(a[0]["trajectory"]), np.asarray(c[1]["trajectory"]))
     assert [m["result"] for m in a[0]["metrics"]] == [m["result"] for m in c[1]["metrics"]]

@@ -192,14 +192,19 @@ def test_pose_refine_matches_pallas():
     assert err < 0.2 * np.linalg.norm(T_true[:3, 3]), err
 
 
-def _depth_problem(seed=3, F=16, K=16, P=7):
+def _depth_problem(seed=3, F=16, K=16, P=7, repeat=True):
+    """Windows, zero-mean reference patches (repeated for each of the K
+    steps of a filter, as the Pallas kernel takes them; with ``repeat``
+    false one a filter) and offsets of F·K rows."""
     rng = np.random.default_rng(seed)
     H, W = 120, 320
     img = rng.uniform(0, 255, (H, W)).astype(np.float32)
     locs = rng.uniform(20, [W - 20, H - 20], (F * K, 2)).astype(np.float32)
     ref = rng.uniform(0, 255, (F, P * P)).astype(np.float32)
     win, org, _ = window_gather(_t(img), _t(locs), win_h=P + 5)
-    cref = np.repeat(ref - ref.mean(-1, keepdims=True), K, axis=0)
+    cref = ref - ref.mean(-1, keepdims=True)
+    if repeat:
+        cref = np.repeat(cref, K, axis=0)
     offs = (_t(locs) - org).numpy()
     return win.numpy(), cref.astype(np.float32), offs
 
@@ -214,6 +219,37 @@ def test_depth_scores_match_pallas():
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
     # ZSSD sums 49 terms of magnitude ~100: float32 rounding ~1e-3 absolute
     np.testing.assert_allclose(tsc.numpy(), np.asarray(jsc), rtol=1e-5, atol=5e-3)
+
+
+def test_depth_scores_one_patch_a_filter_match_pallas():
+    """The port's interface: one reference patch a filter of K = 16 steps
+    (``steps=16``, row r reads patch r // 16) against the Pallas kernel fed
+    the patches repeated per step, and against the port's own ``steps=1``
+    form on the repeated patches (the same function: bit for bit)."""
+    P = 7  # the Pallas kernel takes windows of a multiple of 128 floats: 12 × 32
+    win, cref, offs = _depth_problem(seed=5, P=P, repeat=False)
+    rep = np.repeat(cref, 16, axis=0)
+    R, WH, WW = win.shape
+    jsc, jok = j_depth_scores(jnp.asarray(win.reshape(R, -1)), jnp.asarray(rep),
+                              jnp.asarray(offs), patch=P, win_h=WH, win_w=WW, block=128,
+                              interpret=True)
+    tsc, tok = depth_scores.depth_scores(_t(win), _t(cref), _t(offs), patch=P, steps=16)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    np.testing.assert_allclose(tsc.numpy(), np.asarray(jsc), rtol=1e-5, atol=5e-3)
+    one_sc, one_ok = depth_scores.depth_scores(_t(win), _t(rep), _t(offs), patch=P, steps=1)
+    assert torch.equal(tsc, one_sc) and torch.equal(tok, one_ok)
+
+
+def test_depth_scores_refuse_a_patch_count_that_is_not_the_rows_over_steps():
+    """R rows of ``steps`` steps take R / steps reference patches; the plain
+    version and the kernel's launcher refuse anything else."""
+    win, cref, offs = _depth_problem(F=4, K=16, repeat=False)
+    with pytest.raises(RuntimeError):
+        depth_scores.depth_scores(_t(win), _t(cref[:3]), _t(offs), steps=16)
+    with pytest.raises(ValueError):
+        depth_scores.kernel_launcher(_t(win), _t(cref[:3]), _t(offs), steps=16)
+    with pytest.raises(ValueError):  # more than the kernel's 8×8 footprint
+        depth_scores.kernel_launcher(_t(win), _t(cref), _t(offs), patch=9, steps=16)
 
 
 def test_wrappers_route_cpu_tensors_to_plain_versions():

@@ -137,7 +137,9 @@ def test_entry_point_on_the_cpu_when_asked(entry):
     ("pose_refine", dict(N=150), 8, 4_312, 520_326, 7.77e-6, "operations"),
     ("depth_scores", dict(N=8192, WH=12, WW=32, P2=49, win_bytes=3_928_064), None, 5_664_768,
      7_225_344, 1.69e-3, "bytes"),
-], ids=["K1-4it", "K1-10it", "K2", "K3", "K4"])
+    ("depth_scores", dict(N=8192, WH=12, WW=32, P2=49, win_bytes=3_928_064, steps=16), None, 4_159_488,
+     7_225_344, 1.242e-3, "bytes"),
+], ids=["K1-4it", "K1-10it", "K2", "K3", "K4", "K4-steps16"])
 def test_bound_ms_at_main_path_shapes(name, shapes, iterations, nbytes, flops, ms, by):
     """A pure shape computation: K1 ≈ 0.71 MB → 0.21 µs by bytes at every
     level (its ≈ 7.6 MFLOP at 10 iterations are 0.11 µs); K2 ≈ 0.51 MB →
@@ -146,7 +148,9 @@ def test_bound_ms_at_main_path_shapes(name, shapes, iterations, nbytes, flops, m
     bisections each, ten H/g passes — are 0.056 µs); K3 4.3 KB is 1.3 ns of
     bytes but ≈ 0.52 MFLOP, 7.8 ns, of operations; K4 ≈ 5.7 MB → 1.7 µs
     (of its 12.6 MB of windows the 3.9 MB of sectors that the main path's
-    footprints touch, ``test_k4_bound_counts_the_sectors_its_footprints_touch``)."""
+    footprints touch, ``test_k4_bound_counts_the_sectors_its_footprints_touch``)
+    with a reference patch a row, ≈ 4.2 MB → 1.24 µs with one a filter of
+    16 steps (``steps``: 512 patches of 49 floats instead of 8192)."""
     bound = selfcheck.bound_ms(name, shapes, iterations)
     assert bound.bytes == nbytes
     assert bound.flops == flops

@@ -14,6 +14,7 @@ from types import SimpleNamespace
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from scipy.linalg import expm
 from scipy.ndimage import correlate1d
@@ -115,6 +116,46 @@ def test_se3_matches_jax(rng):
     pts = rng.normal(0, 5, size=(8, 3))
     np.testing.assert_allclose(_np(tC.apply(_t(pts))), np.asarray(jC.apply(jnp.asarray(pts))),
                                atol=1e-10)
+
+
+def _se3_ops():
+    """Each se3 operation of the device path as a function of tensors."""
+    T = lambda R, t: se3.SE3(R, t)  # noqa: E731
+    return {
+        "exp": lambda tau: tuple(se3.exp(tau)),
+        "log": lambda R, t: se3.log(T(R, t)),
+        "compose": lambda R, t, R2, t2: tuple(T(R, t).compose(T(R2, t2))),
+        "inverse": lambda R, t: tuple(T(R, t).inverse()),
+        "apply": lambda R, t, p: T(R, t).apply(p),
+        "rotate": lambda R, t, p: T(R, t).rotate(p),
+    }
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_se3_ops_give_each_member_its_own_bits_under_vmap(batch):
+    """``torch.func.vmap`` of every se3 operation gives each member of the
+    batch the bits of its own unbatched call, whatever slot it sits in (its
+    3×3 products are sums of elementwise products, so no batched matmul can
+    round a member by its place): a batch of one, and a batch of three
+    rolled through every slot. float32, the device path's type."""
+    rng = np.random.default_rng(17)
+    taus = rng.normal(0, 0.4, size=(batch, 6)).astype(np.float32)
+    taus[0, 3:] *= 1e-4  # a small angle: the series branches
+    T = se3.exp(torch.from_numpy(taus))
+    args = {"exp": (torch.from_numpy(taus),), "log": tuple(T), "inverse": tuple(T),
+            "compose": tuple(T) + tuple(se3.exp(torch.from_numpy(taus[::-1].copy()))),
+            "apply": tuple(T) + (torch.from_numpy(rng.normal(0, 5, (batch, 64, 3)).astype(np.float32)),)}
+    args["rotate"] = args["apply"]
+    for name, fn in _se3_ops().items():
+        for roll in range(batch):
+            stacked = [torch.roll(a, roll, 0) for a in args[name]]
+            got = torch.func.vmap(fn)(*stacked)
+            got = got if isinstance(got, tuple) else (got,)
+            for slot in range(batch):
+                want = fn(*[a[slot] for a in stacked])
+                want = want if isinstance(want, tuple) else (want,)
+                for g, w in zip(got, want):
+                    assert torch.equal(g[slot], w), (name, batch, roll, slot)
 
 
 def test_camera_matches_jax(rng):

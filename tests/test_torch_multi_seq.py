@@ -306,6 +306,20 @@ def test_multi_seq_matches_device_system_alone(runs):
             assert ate_rmse(c, _centers(gt), with_scale=True) < 0.05, i
 
 
+def test_a_sequence_gets_the_same_bits_in_either_slot(runs):
+    """The two sequences swapped, each keeping its RANSAC draws and seed:
+    each gets the bits of its run in the other slot, frame for frame: no op
+    of the vmapped superstep rounds a member by its slot. (On the CPU this
+    held with matmuls in ``se3`` too; on the card batched cuBLAS products
+    did round by slot, which ``test_torch_gpu`` checks.)"""
+    ms = MultiSequenceSystem(load_config(overrides=OVERRIDES), N_SEQ, camera=PinholeCamera.create(**CAM),
+                             device="cpu", ransac_uniforms=runs["uniforms"][::-1], seeds=[1, 0], **KW)
+    swapped = ms.run(runs["seqs"][::-1])
+    for i in range(N_SEQ):
+        np.testing.assert_array_equal(np.asarray(swapped[N_SEQ - 1 - i]["trajectory"]),
+                                      np.asarray(runs["multi"][i]["trajectory"]), err_msg=str(i))
+
+
 def test_multi_seq_matches_jax_multi_seq(runs):
     """The JAX ``MultiSequenceSystem`` (its CPU default, XLA) over the first
     ``JAX_FRAMES`` frames of both sequences — the bootstrap and one joint

@@ -105,3 +105,20 @@ def test_vmapped_depth_scores_match_vmapped_pallas():
         *map(torch.from_numpy, (win, cref, offs)))
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
     np.testing.assert_allclose(tsc.numpy(), np.asarray(jsc), rtol=1e-5, atol=5e-3)
+
+
+def test_vmapped_depth_scores_one_patch_a_filter_match_vmapped_pallas():
+    """The port's interface under ``torch.func.vmap``: S problems of one
+    reference patch a filter of 16 steps (``steps=16``) against ``jax.vmap``
+    of the Pallas kernel fed each problem's patches repeated per step."""
+    problems = [_depth_problem(seed=s, repeat=False) for s in (3, 4)]
+    win, cref, offs = (_stack(problems, k) for k in range(3))
+    R, WH, WW = win.shape[1:]
+    rep = np.repeat(cref, 16, axis=1)
+    jsc, jok = jax.vmap(lambda w, c, o: j_depth_scores(w, c, o, patch=7, win_h=WH, win_w=WW, block=128,
+                                                       interpret=True))(
+        jnp.asarray(win.reshape(S, R, -1)), jnp.asarray(rep), jnp.asarray(offs))
+    tsc, tok = torch.func.vmap(lambda w, c, o: depth_scores.depth_scores(w, c, o, patch=7, steps=16))(
+        *map(torch.from_numpy, (win, cref, offs)))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    np.testing.assert_allclose(tsc.numpy(), np.asarray(jsc), rtol=1e-5, atol=5e-3)
