@@ -7,20 +7,25 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 2. Builds the hand-written kernels from ``sdvo_tpu_torch/csrc`` (nvcc, sm_90a).
 3. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (K1: 256 features at all four levels, and the host
-   path's 512 features at 12 iterations a level; K2: 150; K3: 150; K4: 8192
-   rows) and times both: the wrapper on the host clock, the kernel
+   path's 512 features at 12 iterations a level; K2: 150; K3: 150; K4: 512
+   filters × 16 steps, one reference patch a filter; and K4 at the extra
+   shapes of ``selfcheck.depth_extra_problems``, rows of their own) and
+   times both: the wrapper on the host clock, the kernel
    alone on the device with its inputs warm in the L2 cache (beside an empty
    kernel), the least time the card could take for the same work
    (``selfcheck.bound_ms``), and, where that bound is one of bytes above the
    empty kernel's time, the kernel's time with its inputs in device memory.
    Then K1, K2 and K3 against their plain versions at the extra shapes of
    ``selfcheck.extra_problems`` (correctness only).
-4. Drives ``DeviceSystem`` (on its default device, the card) — bootstrap plus
-   chunks of 8 supersteps — on the
+4. Drives ``DeviceSystem`` (on its default device, the card, in the mode it
+   ships with: deterministic algorithms) — bootstrap plus chunks of 8
+   supersteps — on the
    rendered 1241×376 scene of ``bench.py`` with its overrides, asserts its
    accuracy gates (no failed frame, exact keyframe cadence, scale-aligned
    ATE < 0.10 m, drift < 1.5 %), that every kernel launched during that run
-   and that no plain version ran on a CUDA tensor; prints frames/s.
+   and that no plain version ran on a CUDA tensor; prints frames/s and a
+   digest of the trajectory. After step 7 it runs again and must give the
+   same trajectory bits.
 5. Drives the per-frame host ``System`` on the card over 2 + 24 frames of the
    same scene with the same gates, and asserts that K1 launched four times a
    frame, K2 and K4 launched, K3 did not (this path polishes with
@@ -49,7 +54,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    aggregate and per-sequence frames/s at S = 8 and at S = 1 (two timed
    chunks after one warm-up), beside the main path's.
 10. Isolation: sequence 0 of a batch of two gets the same bits beside
-   another texture, and the same results in the other slot.
+   another texture, and the same bits in the other slot (each sequence
+   keeping its RANSAC seed).
 11. Prints the kernels' JSON line, then last the device JSON line.
 
 Imports nothing of JAX. Exits non-zero on any failure, without a result;

@@ -11,21 +11,24 @@
 //
 // What bounds it on an H100: bytes, 4.16 MB at the main path's 512 × 16 rows
 // (the 32-byte sectors the 8×8 bilinear footprints touch, cref once a
-// filter, the offsets and the two outputs), ~1.2 µs at 3.35 TB/s; in
-// practice the latency of two dependent loads (offsets, then footprints) and
-// the L1 wavefronts of scattered taps. The design puts every load of a warp
-// in flight before any arithmetic:
-//   1. a warp takes ROWS consecutive rows; its offsets arrive in one
-//      coalesced load and each lane's cref values are loaded before them
+// filter, the offsets and the two outputs), 1.24 µs at 3.35 TB/s. What holds
+// it back is latency: a footprint's address depends on its row's offsets,
+// so every row waits for two dependent loads after the launch. The design
+// puts every load of a warp in flight before any arithmetic:
+//   1. a warp takes kRows = 4 consecutive rows; their offsets arrive in one
+//      coalesced load, and each lane's cref values are loaded before them
 //      (their addresses do not depend on the offsets);
 //   2. each row's footprint — P + 1 window rows of the two 32-byte sectors
 //      that hold its P + 1 columns — is copied into shared memory with one
-//      16-byte cp.async a lane (zero-filled where it leaves the window, so
-//      outside taps read 0), all rows' copies in flight together;
-//   3. each row is finished by 32 / ROWS lanes, each owning a run of patch
-//      rows: horizontal lerps of its footprint rows from shared memory, then
-//      the vertical lerp, the patch mean and the ZSSD by xor-shuffle sums
-//      within the row's lanes.
+//      16-byte cp.async a lane (the 32 lanes cover a row's 8 × 4 chunks;
+//      zero-filled where the footprint leaves the window, so outside taps
+//      read 0; the second sector is skipped where no column needs it);
+//   3. each row is finished by 8 lanes, one a patch row: horizontal lerps of
+//      two footprint rows from shared memory, the vertical lerp, the patch
+//      mean and the ZSSD by xor-shuffle sums within the row's lanes.
+// Four rows a warp was the fastest of 1, 2, 4, 8 and 16 rows a warp, of
+// per-lane copies and of register-only sampling at both the main shape and
+// eight problems in one launch (PERF.md, §6).
 // The gather that builds the windows stays in PyTorch
 // (sdvo_tpu_torch.ops.window_sampler).
 #include "common.cuh"
@@ -33,11 +36,13 @@
 namespace sdvo {
 namespace {
 
-constexpr int kMaxPatch = 7;           // footprint P + 1 ≤ 8 rows and columns
+constexpr int kMaxPatch = 7;                       // footprint P + 1 ≤ 8 rows and columns
 constexpr int kFootRows = kMaxPatch + 1;
-constexpr int kSpan = 16;              // two 32-byte sectors of a footprint row
+constexpr int kSpan = 16;                          // two 32-byte sectors of a footprint row
 constexpr int kRowStride = kFootRows * kSpan + 4;  // floats a row in shared memory (+4: banks)
-constexpr int kDepthWarps = 4;         // warps a block
+constexpr int kRows = 4;                           // rows a warp
+constexpr int kLanes = 32 / kRows;                 // lanes a row: one a patch row
+constexpr int kWarps = 4;                          // warps a block
 
 __device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, bool valid) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -45,42 +50,35 @@ __device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, b
                "r"(valid ? 16 : 0));
 }
 
-template <int ROWS>
-__global__ void __launch_bounds__(32 * kDepthWarps)
+__global__ void __launch_bounds__(32 * kWarps)
     depth_scores_kernel(const float* __restrict__ win, const float* __restrict__ cref,
                         const float* __restrict__ offs, float* __restrict__ score,
                         float* __restrict__ ok_out, int R, int WH, int WW, int patch, int steps) {
-  constexpr int LPR = 32 / ROWS;                           // lanes a row
-  constexpr int CH = (kMaxPatch + LPR - 1) / LPR;          // patch rows a lane, at most
-  __shared__ __align__(16) float foot[kDepthWarps][ROWS][kRowStride];
+  __shared__ __align__(16) float foot[kWarps][kRows][kRowStride];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row0 = (blockIdx.x * kDepthWarps + warp) * ROWS;
+  const int row0 = (blockIdx.x * kWarps + warp) * kRows;
   if (row0 >= R) return;  // warp-uniform
   const int P2 = patch * patch, half = patch / 2;
 
-  // this lane's row, its run of patch rows [py0, py1) and their cref values
-  const int my = lane / LPR, sub = lane % LPR;
+  // this lane's row and patch row py, and the row's cref values of it
+  const int my = lane / kLanes, py = lane % kLanes;
   const int row = row0 + my;
-  const bool live = row < R;
-  const int py0 = min(sub * CH, patch), py1 = min(py0 + CH, patch);
-  float cr[CH][kMaxPatch];
+  const bool live = row < R && py < patch;
+  float cr[kMaxPatch];
   {
-    const float* c = cref + (size_t)(live ? row / steps : 0) * P2;
+    const float* c = cref + (size_t)(live ? row / steps : 0) * P2 + (live ? py * patch : 0);
 #pragma unroll
-    for (int j = 0; j < CH; ++j)
-#pragma unroll
-      for (int i = 0; i < kMaxPatch; ++i)
-        cr[j][i] = (live && py0 + j < py1 && i < patch) ? c[(py0 + j) * patch + i] : 0.f;
+    for (int i = 0; i < kMaxPatch; ++i) cr[i] = (live && i < patch) ? c[i] : 0.f;
   }
   // the warp's offsets: x, y of row row0 + k in lanes 2k, 2k + 1
-  const float o = (2 * row0 + lane < 2 * R && lane < 2 * ROWS) ? offs[2 * row0 + lane] : 0.f;
+  const float o = (lane < 2 * kRows && 2 * row0 + lane < 2 * R) ? offs[2 * row0 + lane] : 0.f;
 
   // every row's footprint into shared memory: lane (fr, q) copies the q-th
   // 16 bytes of the two sectors that hold footprint row fr
   {
     const int fr = lane >> 2, q = lane & 3;
 #pragma unroll
-    for (int k = 0; k < ROWS; ++k) {
+    for (int k = 0; k < kRows; ++k) {
       const float ox = __shfl_sync(kFullMask, o, 2 * k), oy = __shfl_sync(kFullMask, o, 2 * k + 1);
       const int ix = (int)floorf(ox - (float)half), iy = (int)floorf(oy - (float)half);
       const int a8 = ix & ~7;  // the first sector's column (floor to a multiple of 8)
@@ -100,454 +98,52 @@ __global__ void __launch_bounds__(32 * kDepthWarps)
   const int s = (int)xf - ((int)xf & ~7);
   const float ax = x0 - xf, ay = y0 - yf;
   const float wx0 = 1.f - ax, wy0 = 1.f - ay;
-  const float* F = foot[warp][my];
-
-  // horizontal lerps of footprint rows py0 .. py1, then the vertical lerp
-  float hz[CH + 1][kMaxPatch];
-#pragma unroll
-  for (int j = 0; j <= CH; ++j) {
-    const float* fr = F + min(py0 + j, kFootRows - 1) * kSpan + s;
-    float t[kFootRows];
-#pragma unroll
-    for (int i = 0; i < kFootRows; ++i) t[i] = fr[i];
-#pragma unroll
-    for (int i = 0; i < kMaxPatch; ++i) hz[j][i] = wx0 * t[i] + ax * t[i + 1];
-  }
-  float v[CH][kMaxPatch];
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < CH; ++j)
-#pragma unroll
-    for (int i = 0; i < kMaxPatch; ++i) {
-      v[j][i] = wy0 * hz[j][i] + ay * hz[j + 1][i];
-      if (py0 + j < py1 && i < patch) sum += v[j][i];
-    }
-#pragma unroll
-  for (int off = LPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(kFullMask, sum, off);
-  const float mean_v = sum / (float)P2;
-  float acc = 0.f;
-#pragma unroll
-  for (int j = 0; j < CH; ++j)
-#pragma unroll
-    for (int i = 0; i < kMaxPatch; ++i)
-      if (py0 + j < py1 && i < patch) acc += fabsf((v[j][i] - mean_v) - cr[j][i]);
-#pragma unroll
-  for (int off = LPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(kFullMask, acc, off);
-  if (live && sub == 0) {
-    score[row] = acc;
-    ok_out[row] = patch_support_ok(x0, y0, patch, WH, WW) ? 1.f : 0.f;
-  }
-}
-
-// v2: each lane loads its own row's offsets and copies the footprint rows
-// its own patch rows need into its own slice of shared memory (a footprint
-// row shared by two lanes is copied twice): no shuffle and no barrier before
-// the copies, cref loaded while they fly.
-template <int ROWS>
-__global__ void __launch_bounds__(32 * kDepthWarps)
-    depth_scores_v2(const float* __restrict__ win, const float* __restrict__ cref,
-                    const float* __restrict__ offs, float* __restrict__ score,
-                    float* __restrict__ ok_out, int R, int WH, int WW, int patch, int steps) {
-  constexpr int LPR = 32 / ROWS;                   // lanes a row
-  constexpr int CH = (kMaxPatch + LPR - 1) / LPR;  // patch rows a lane, at most
-  constexpr int LANE_FLOATS = (CH + 1) * kSpan + 4;  // the footprint rows a lane copies (+4: banks)
-  __shared__ __align__(16) float foot[kDepthWarps][32][LANE_FLOATS];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row0 = (blockIdx.x * kDepthWarps + warp) * ROWS;
-  if (row0 >= R) return;  // warp-uniform
-  const int my = lane / LPR, sub = lane % LPR;
-  const int row = row0 + my;
-  const bool live = row < R;
-  const int P2 = patch * patch, half = patch / 2;
-  const int py0 = min(sub * CH, patch), py1 = min(py0 + CH, patch);
-
-  float ox = 0.f, oy = 0.f;
-  if (live) {
-    const float2 o = *reinterpret_cast<const float2*>(offs + 2 * (size_t)row);
-    ox = o.x;
-    oy = o.y;
-  }
-  const float x0 = ox - (float)half, y0 = oy - (float)half;
-  const float xf = floorf(x0), yf = floorf(y0);
-  const int ix = (int)xf, iy = (int)yf;
-  const int a8 = ix & ~7, s = ix - a8;
-  float* F = foot[warp][lane];
-  {
-    const float* w = win + (size_t)(live ? row : 0) * WH * WW;
-#pragma unroll
-    for (int j = 0; j <= CH; ++j) {
-      const int fr = py0 + j, h = iy + fr;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = a8 + 4 * q;
-        const bool valid = live && py0 < py1 && fr <= py1 && h >= 0 && h < WH && c >= 0 &&
-                           c + 4 <= WW && (q < 2 || s + patch >= 8);
-        cp_async16_zfill(F + j * kSpan + 4 * q, valid ? w + h * WW + c : win, valid);
-      }
-    }
-  }
-  float cr[CH][kMaxPatch];
-  {
-    const float* c = cref + (size_t)(live ? row / steps : 0) * P2;
-#pragma unroll
-    for (int j = 0; j < CH; ++j)
-#pragma unroll
-      for (int i = 0; i < kMaxPatch; ++i)
-        cr[j][i] = (live && py0 + j < py1 && i < patch) ? c[(py0 + j) * patch + i] : 0.f;
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-
-  const float ax = x0 - xf, ay = y0 - yf;
-  const float wx0 = 1.f - ax, wy0 = 1.f - ay;
-  float hz[CH + 1][kMaxPatch];
-#pragma unroll
-  for (int j = 0; j <= CH; ++j) {
-    const float* fr = F + j * kSpan + s;
-    float t[kFootRows];
-#pragma unroll
-    for (int i = 0; i < kFootRows; ++i) t[i] = fr[i];
-#pragma unroll
-    for (int i = 0; i < kMaxPatch; ++i) hz[j][i] = wx0 * t[i] + ax * t[i + 1];
-  }
-  float v[CH][kMaxPatch];
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < CH; ++j)
-#pragma unroll
-    for (int i = 0; i < kMaxPatch; ++i) {
-      v[j][i] = wy0 * hz[j][i] + ay * hz[j + 1][i];
-      if (py0 + j < py1 && i < patch) sum += v[j][i];
-    }
-#pragma unroll
-  for (int off = LPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(kFullMask, sum, off);
-  const float mean_v = sum / (float)P2;
-  float acc = 0.f;
-#pragma unroll
-  for (int j = 0; j < CH; ++j)
-#pragma unroll
-    for (int i = 0; i < kMaxPatch; ++i)
-      if (py0 + j < py1 && i < patch) acc += fabsf((v[j][i] - mean_v) - cr[j][i]);
-#pragma unroll
-  for (int off = LPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(kFullMask, acc, off);
-  if (live && sub == 0) {
-    score[row] = acc;
-    ok_out[row] = patch_support_ok(x0, y0, patch, WH, WW) ? 1.f : 0.f;
-  }
-}
-
-// v3: as v2, but each lane loads its footprint rows' sectors into registers
-// (16-byte loads) and picks the columns from them by a three-stage shift by
-// the offset's column in its sector: no shared memory.
-__device__ __forceinline__ float4 ld_or_zero(const float* p, bool valid) {
-  return valid ? __ldg(reinterpret_cast<const float4*>(p)) : make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-template <int ROWS>
-__global__ void __launch_bounds__(32 * kDepthWarps)
-    depth_scores_v3(const float* __restrict__ win, const float* __restrict__ cref,
-                    const float* __restrict__ offs, float* __restrict__ score,
-                    float* __restrict__ ok_out, int R, int WH, int WW, int patch, int steps) {
-  constexpr int LPR = 32 / ROWS;
-  constexpr int CH = (kMaxPatch + LPR - 1) / LPR;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row0 = (blockIdx.x * kDepthWarps + warp) * ROWS;
-  if (row0 >= R) return;  // warp-uniform
-  const int my = lane / LPR, sub = lane % LPR;
-  const int row = row0 + my;
-  const bool live = row < R;
-  const int P2 = patch * patch, half = patch / 2;
-  const int py0 = min(sub * CH, patch), py1 = min(py0 + CH, patch);
-
-  float ox = 0.f, oy = 0.f;
-  if (live) {
-    const float2 o = *reinterpret_cast<const float2*>(offs + 2 * (size_t)row);
-    ox = o.x;
-    oy = o.y;
-  }
-  const float x0 = ox - (float)half, y0 = oy - (float)half;
-  const float xf = floorf(x0), yf = floorf(y0);
-  const int ix = (int)xf, iy = (int)yf;
-  const int a8 = ix & ~7, s = ix - a8;
-  float4 raw[CH + 1][4];
-  {
-    const float* w = win + (size_t)(live ? row : 0) * WH * WW;
-#pragma unroll
-    for (int j = 0; j <= CH; ++j) {
-      const int fr = py0 + j, h = iy + fr;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = a8 + 4 * q;
-        const bool valid = live && py0 < py1 && fr <= py1 && h >= 0 && h < WH && c >= 0 &&
-                           c + 4 <= WW && (q < 2 || s + patch >= 8);
-        raw[j][q] = ld_or_zero(w + h * WW + c, valid);
-      }
-    }
-  }
-  float cr[CH][kMaxPatch];
-  {
-    const float* c = cref + (size_t)(live ? row / steps : 0) * P2;
-#pragma unroll
-    for (int j = 0; j < CH; ++j)
-#pragma unroll
-      for (int i = 0; i < kMaxPatch; ++i)
-        cr[j][i] = (live && py0 + j < py1 && i < patch) ? c[(py0 + j) * patch + i] : 0.f;
-  }
-
-  const float ax = x0 - xf, ay = y0 - yf;
-  const float wx0 = 1.f - ax, wy0 = 1.f - ay;
-  float hz[CH + 1][kMaxPatch];
-#pragma unroll
-  for (int j = 0; j <= CH; ++j) {
-    float t[kSpan];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      t[4 * q] = raw[j][q].x; t[4 * q + 1] = raw[j][q].y;
-      t[4 * q + 2] = raw[j][q].z; t[4 * q + 3] = raw[j][q].w;
-    }
-    // t[i] <- t[i + s] for the first 8 columns, s in [0, 8)
-#pragma unroll
-    for (int i = 0; i < 12; ++i) t[i] = (s & 4) ? t[i + 4] : t[i];
-#pragma unroll
-    for (int i = 0; i < 10; ++i) t[i] = (s & 2) ? t[i + 2] : t[i];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) t[i] = (s & 1) ? t[i + 1] : t[i];
-#pragma unroll
-    for (int i = 0; i < kMaxPatch; ++i) hz[j][i] = wx0 * t[i] + ax * t[i + 1];
-  }
-  float v[CH][kMaxPatch];
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < CH; ++j)
-#pragma unroll
-    for (int i = 0; i < kMaxPatch; ++i) {
-      v[j][i] = wy0 * hz[j][i] + ay * hz[j + 1][i];
-      if (py0 + j < py1 && i < patch) sum += v[j][i];
-    }
-#pragma unroll
-  for (int off = LPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(kFullMask, sum, off);
-  const float mean_v = sum / (float)P2;
-  float acc = 0.f;
-#pragma unroll
-  for (int j = 0; j < CH; ++j)
-#pragma unroll
-    for (int i = 0; i < kMaxPatch; ++i)
-      if (py0 + j < py1 && i < patch) acc += fabsf((v[j][i] - mean_v) - cr[j][i]);
-#pragma unroll
-  for (int off = LPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(kFullMask, acc, off);
-  if (live && sub == 0) {
-    score[row] = acc;
-    ok_out[row] = patch_support_ok(x0, y0, patch, WH, WW) ? 1.f : 0.f;
-  }
-}
-
-// v4: as the ROWS kernel, but the copies are shared out by row: the lanes
-// of a row each load its offsets (one 8-byte load, the same address) and
-// copy P + 1 footprint rows between them, so no shuffle and no loop over
-// the warp's rows precedes the copies.
-template <int ROWS>
-__global__ void __launch_bounds__(32 * kDepthWarps)
-    depth_scores_v4(const float* __restrict__ win, const float* __restrict__ cref,
-                    const float* __restrict__ offs, float* __restrict__ score,
-                    float* __restrict__ ok_out, int R, int WH, int WW, int patch, int steps) {
-  constexpr int LPR = 32 / ROWS;                   // lanes a row
-  constexpr int CH = (kMaxPatch + LPR - 1) / LPR;  // patch rows a lane, at most
-  constexpr int FPL = kFootRows / LPR;             // footprint rows a lane copies
-  __shared__ __align__(16) float foot[kDepthWarps][ROWS][kRowStride];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row0 = (blockIdx.x * kDepthWarps + warp) * ROWS;
-  if (row0 >= R) return;  // warp-uniform
-  const int my = lane / LPR, sub = lane % LPR;
-  const int row = row0 + my;
-  const bool live = row < R;
-  const int P2 = patch * patch, half = patch / 2;
-
-  float ox = 0.f, oy = 0.f;
-  if (live) {
-    const float2 o = *reinterpret_cast<const float2*>(offs + 2 * (size_t)row);
-    ox = o.x;
-    oy = o.y;
-  }
-  const float x0 = ox - (float)half, y0 = oy - (float)half;
-  const float xf = floorf(x0), yf = floorf(y0);
-  const int ix = (int)xf, iy = (int)yf;
-  const int a8 = ix & ~7, s = ix - a8;
-  float* F = foot[warp][my];
-  {
-    const float* w = win + (size_t)(live ? row : 0) * WH * WW;
-#pragma unroll
-    for (int j = 0; j < FPL; ++j) {
-      const int fr = sub * FPL + j, h = iy + fr;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = a8 + 4 * q;
-        const bool valid = live && fr <= patch && h >= 0 && h < WH && c >= 0 && c + 4 <= WW &&
-                           (q < 2 || s + patch >= 8);
-        cp_async16_zfill(F + fr * kSpan + 4 * q, valid ? w + h * WW + c : win, valid);
-      }
-    }
-  }
-  const int py0 = min(sub * CH, patch), py1 = min(py0 + CH, patch);
-  float cr[CH][kMaxPatch];
-  {
-    const float* c = cref + (size_t)(live ? row / steps : 0) * P2;
-#pragma unroll
-    for (int j = 0; j < CH; ++j)
-#pragma unroll
-      for (int i = 0; i < kMaxPatch; ++i)
-        cr[j][i] = (live && py0 + j < py1 && i < patch) ? c[(py0 + j) * patch + i] : 0.f;
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncwarp();
-
-  const float ax = x0 - xf, ay = y0 - yf;
-  const float wx0 = 1.f - ax, wy0 = 1.f - ay;
-  float hz[CH + 1][kMaxPatch];
-#pragma unroll
-  for (int j = 0; j <= CH; ++j) {
-    const float* fr = F + min(py0 + j, kFootRows - 1) * kSpan + s;
-    float t[kFootRows];
-#pragma unroll
-    for (int i = 0; i < kFootRows; ++i) t[i] = fr[i];
-#pragma unroll
-    for (int i = 0; i < kMaxPatch; ++i) hz[j][i] = wx0 * t[i] + ax * t[i + 1];
-  }
-  float v[CH][kMaxPatch];
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < CH; ++j)
-#pragma unroll
-    for (int i = 0; i < kMaxPatch; ++i) {
-      v[j][i] = wy0 * hz[j][i] + ay * hz[j + 1][i];
-      if (py0 + j < py1 && i < patch) sum += v[j][i];
-    }
-#pragma unroll
-  for (int off = LPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(kFullMask, sum, off);
-  const float mean_v = sum / (float)P2;
-  float acc = 0.f;
-#pragma unroll
-  for (int j = 0; j < CH; ++j)
-#pragma unroll
-    for (int i = 0; i < kMaxPatch; ++i)
-      if (py0 + j < py1 && i < patch) acc += fabsf((v[j][i] - mean_v) - cr[j][i]);
-#pragma unroll
-  for (int off = LPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(kFullMask, acc, off);
-  if (live && sub == 0) {
-    score[row] = acc;
-    ok_out[row] = patch_support_ok(x0, y0, patch, WH, WW) ? 1.f : 0.f;
-  }
-}
-
-// the kernel of PR 1 (one warp a row), kept while the forms are measured
-constexpr int kRowWarps = 8;
-__global__ void depth_scores_rowwarp(const float* __restrict__ win, const float* __restrict__ cref,
-                                     const float* __restrict__ offs, float* __restrict__ score,
-                                     float* __restrict__ ok_out, int R, int WH, int WW, int patch,
-                                     int steps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
-  if (row >= R) return;  // warp-uniform
-  const int P2 = patch * patch, half = patch / 2;
-  const float x0 = offs[2 * row] - half, y0 = offs[2 * row + 1] - half;
-  const float* w = win + (size_t)row * WH * WW;
-  const float* c = cref + (size_t)(row / steps) * P2;
-  float vals[2];
-  float s = 0.f;
+  // horizontal lerps of footprint rows py and py + 1, then the vertical lerp
+  const float* F = foot[warp][my] + min(py, kFootRows - 2) * kSpan + s;
+  float hz[2][kMaxPatch];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    const int k = lane + 32 * j;
-    vals[j] = 0.f;
-    if (k < P2) vals[j] = window_bilinear(w, WH, WW, x0 + (float)(k % patch), y0 + (float)(k / patch));
-    s += vals[j];
+    float t[kFootRows];
+#pragma unroll
+    for (int i = 0; i < kFootRows; ++i) t[i] = F[j * kSpan + i];
+#pragma unroll
+    for (int i = 0; i < kMaxPatch; ++i) hz[j][i] = wx0 * t[i] + ax * t[i + 1];
   }
-  const float mean_v = warp_sum(s) / (float)P2;
+  float v[kMaxPatch];
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxPatch; ++i) {
+    v[i] = wy0 * hz[0][i] + ay * hz[1][i];
+    if (live && i < patch) sum += v[i];
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(kFullMask, sum, off);
+  const float mean_v = sum / (float)P2;
   float acc = 0.f;
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int k = lane + 32 * j;
-    if (k < P2) acc += fabsf((vals[j] - mean_v) - c[k]);
-  }
-  acc = warp_sum(acc);
-  if (lane == 0) {
+  for (int i = 0; i < kMaxPatch; ++i)
+    if (live && i < patch) acc += fabsf((v[i] - mean_v) - cr[i]);
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(kFullMask, acc, off);
+  if (row < R && py == 0) {
     score[row] = acc;
     ok_out[row] = patch_support_ok(x0, y0, patch, WH, WW) ? 1.f : 0.f;
   }
-}
-
-template <int ROWS>
-int launch_v2(const float* windows, const float* cref, const float* offs, float* score, float* ok,
-              int R, int WH, int WW, int patch, int steps, cudaStream_t stream) {
-  const int per_block = ROWS * kDepthWarps;
-  const int blocks = (R + per_block - 1) / per_block;
-  if (blocks > 0)
-    depth_scores_v2<ROWS><<<blocks, 32 * kDepthWarps, 0, stream>>>(windows, cref, offs, score, ok, R, WH,
-                                                                   WW, patch, steps);
-  return (int)cudaGetLastError();
-}
-
-template <int ROWS>
-int launch_v3(const float* windows, const float* cref, const float* offs, float* score, float* ok,
-              int R, int WH, int WW, int patch, int steps, cudaStream_t stream) {
-  const int per_block = ROWS * kDepthWarps;
-  const int blocks = (R + per_block - 1) / per_block;
-  if (blocks > 0)
-    depth_scores_v3<ROWS><<<blocks, 32 * kDepthWarps, 0, stream>>>(windows, cref, offs, score, ok, R, WH,
-                                                                   WW, patch, steps);
-  return (int)cudaGetLastError();
-}
-
-template <int ROWS>
-int launch_v4(const float* windows, const float* cref, const float* offs, float* score, float* ok,
-              int R, int WH, int WW, int patch, int steps, cudaStream_t stream) {
-  const int per_block = ROWS * kDepthWarps;
-  const int blocks = (R + per_block - 1) / per_block;
-  if (blocks > 0)
-    depth_scores_v4<ROWS><<<blocks, 32 * kDepthWarps, 0, stream>>>(windows, cref, offs, score, ok, R, WH,
-                                                                   WW, patch, steps);
-  return (int)cudaGetLastError();
-}
-
-template <int ROWS>
-int launch_rows(const float* windows, const float* cref, const float* offs, float* score, float* ok,
-                int R, int WH, int WW, int patch, int steps, cudaStream_t stream) {
-  const int per_block = ROWS * kDepthWarps;
-  const int blocks = (R + per_block - 1) / per_block;
-  if (blocks > 0)
-    depth_scores_kernel<ROWS><<<blocks, 32 * kDepthWarps, 0, stream>>>(windows, cref, offs, score, ok,
-                                                                       R, WH, WW, patch, steps);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace sdvo
 
-// form: rows a warp (2, 4, 8, 16; 204, 208, 216: v2 with 4, 8, 16; 304, 308: v3), or 0 for one warp a row
 extern "C" int sdvo_depth_scores(const float* windows, const float* cref, const float* offs,
                                  float* score, float* ok, int R, int WH, int WW, int patch, int steps,
-                                 int form, void* stream) {
+                                 void* stream) {
   if (patch < 1 || patch > sdvo::kMaxPatch || WW % 4 != 0 || steps < 1 ||
-      ((uintptr_t)windows & 15) != 0 || ((uintptr_t)offs & 7) != 0)
+      ((uintptr_t)windows & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (form) {
-    case 0: {
-      const int blocks = (R + sdvo::kRowWarps - 1) / sdvo::kRowWarps;
-      if (blocks > 0)
-        sdvo::depth_scores_rowwarp<<<blocks, 32 * sdvo::kRowWarps, 0, st>>>(windows, cref, offs, score,
-                                                                            ok, R, WH, WW, patch, steps);
-      return (int)cudaGetLastError();
-    }
-    case 2: return sdvo::launch_rows<2>(windows, cref, offs, score, ok, R, WH, WW, patch, steps, st);
-    case 4: return sdvo::launch_rows<4>(windows, cref, offs, score, ok, R, WH, WW, patch, steps, st);
-    case 8: return sdvo::launch_rows<8>(windows, cref, offs, score, ok, R, WH, WW, patch, steps, st);
-    case 16: return sdvo::launch_rows<16>(windows, cref, offs, score, ok, R, WH, WW, patch, steps, st);
-    case 204: return sdvo::launch_v2<4>(windows, cref, offs, score, ok, R, WH, WW, patch, steps, st);
-    case 208: return sdvo::launch_v2<8>(windows, cref, offs, score, ok, R, WH, WW, patch, steps, st);
-    case 216: return sdvo::launch_v2<16>(windows, cref, offs, score, ok, R, WH, WW, patch, steps, st);
-    case 304: return sdvo::launch_v3<4>(windows, cref, offs, score, ok, R, WH, WW, patch, steps, st);
-    case 308: return sdvo::launch_v3<8>(windows, cref, offs, score, ok, R, WH, WW, patch, steps, st);
-    case 416: return sdvo::launch_v4<16>(windows, cref, offs, score, ok, R, WH, WW, patch, steps, st);
-    case 404: return sdvo::launch_v4<4>(windows, cref, offs, score, ok, R, WH, WW, patch, steps, st);
-    case 408: return sdvo::launch_v4<8>(windows, cref, offs, score, ok, R, WH, WW, patch, steps, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int per_block = sdvo::kRows * sdvo::kWarps;
+  const int blocks = (R + per_block - 1) / per_block;
+  if (blocks > 0)
+    sdvo::depth_scores_kernel<<<blocks, 32 * sdvo::kWarps, 0, (cudaStream_t)stream>>>(
+        windows, cref, offs, score, ok, R, WH, WW, patch, steps);
+  return (int)cudaGetLastError();
 }

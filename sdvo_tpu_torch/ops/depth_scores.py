@@ -2,7 +2,8 @@
 
 Port of ``sdvo_tpu.ops.pallas_depth.depth_scores``. ``depth_scores`` is the
 wrapper around the operator ``sdvo::depth_scores``: CUDA tensors go to
-``csrc/depth_scores.cu``, CPU tensors to ``depth_scores_plain``; under
+``csrc/depth_scores.cu`` (four rows a warp, their footprints copied into
+shared memory), CPU tensors to ``depth_scores_plain``; under
 ``torch.func.vmap`` the S·R rows of S sequences are one launch on the card
 (one plain call per sequence on the CPU). Each row samples a P×P bilinear
 patch from its window, subtracts the patch mean and sums |· − cref|, cref
@@ -26,7 +27,6 @@ from sdvo_tpu_torch.ops.window_sampler import sample_windows
 launches = 0
 plain_cuda_calls = 0
 MAX_PATCH = 7  # the kernel's footprint: P + 1 ≤ 8 rows and columns
-FORM = 16  # rows a warp (2, 4, 8, 16), or 0 for one warp a row (the kernel of PR 1)
 
 
 def depth_scores_plain(windows, cref, offs, patch: int = 7, steps: int = 1):
@@ -59,12 +59,12 @@ def kernel_launcher(windows, cref, offs, patch: int = 7, steps: int = 1):
                        {k: lead + v for k, v in {"windows": (R, WH, WW), "cref": (R // steps, P2),
                                                  "offs": (R, 2)}.items()},
                        windows=windows, cref=cref, offs=offs)
-    if windows.data_ptr() % 16 or offs.data_ptr() % 8:
-        raise ValueError("depth_scores: windows must start on 16 bytes and offs on 8")
+    if windows.data_ptr() % 16:
+        raise ValueError("depth_scores: windows must start on 16 bytes")
     score = torch.empty(lead + (R,), dtype=torch.float32, device=dev)
     ok = torch.empty(lead + (R,), dtype=torch.float32, device=dev)
     args = (windows.data_ptr(), cref.data_ptr(), offs.data_ptr(), score.data_ptr(), ok.data_ptr(),
-            score.numel(), WH, WW, patch, steps, FORM)
+            score.numel(), WH, WW, patch, steps)
     launch = build.launcher(sys.modules[__name__], "depth_scores", "sdvo_depth_scores", args, dev,
                             (windows, cref, offs, score, ok))
     return launch, score, ok

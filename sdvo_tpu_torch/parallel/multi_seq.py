@@ -24,7 +24,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from sdvo_tpu_torch.device import deterministic_algorithms, resolve_device
+from sdvo_tpu_torch.device import deterministic_on, resolve_device
 from sdvo_tpu_torch.parallel.mesh import SeqShards, VOMesh, seq_groups, tree_map
 from sdvo_tpu_torch.pipeline.device_system import DeviceSystem, DeviceVO, FrameOut, VOState
 
@@ -113,7 +113,7 @@ class MultiSequenceSystem:
     ``device`` defaults to the CUDA card and raises where there is none
     (``device="cpu"`` asks for the CPU); a mesh puts each group of sequences
     on its ``seq`` device instead. On the card the joint chunks run with
-    PyTorch's deterministic algorithms (``device.deterministic_algorithms``):
+    PyTorch's deterministic algorithms (``device.deterministic_on``):
     the bundle adjustment's float ``index_add`` would otherwise sum by
     atomic adds in whatever order the threads reach them, and a sequence
     would not get the same bits from one run to the next. ``ransac_uniforms``: one array (or None)
@@ -147,7 +147,6 @@ class MultiSequenceSystem:
         self.supersteps_per_chunk = supersteps_per_chunk
         self.vo = self.subs[0].vo  # shared kernels: one program for every sequence
         self._fn = multi_chunk_fn(self.vo, mesh)
-        self._deterministic = any(dev.type == "cuda" for dev, _ in self.groups)
 
     @property
     def period(self) -> int:
@@ -185,7 +184,7 @@ class MultiSequenceSystem:
         every sequence) and ``chunk_seconds`` the host time of each of its
         chunks, up to the chunk's outputs on the host."""
         self.frame_steps, self.chunk_seconds = 0, []
-        with deterministic_algorithms() if self._deterministic else contextlib.nullcontext():
+        with deterministic_on(self.groups[0][0]):  # a mesh's groups lie on devices of one type
             self._joint(sequences)
 
     def _joint(self, sequences: List[List[np.ndarray]]):

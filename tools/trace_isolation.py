@@ -3,7 +3,7 @@
 sequence's slot in the batch, or on the run.
 
 Run from the repository root: ``python3 tools/trace_isolation.py [--device
-cuda|cpu] [--seeds 0,4] [--supersteps 2] [--chunks 1]``. Renders two
+cuda|cpu] [--seeds 0,4] [--supersteps 2] [--chunks 1] [--out FILE]``. Renders two
 textures A and B of bench.py's scene and runs ``MultiSequenceSystem`` (S = 2,
 on the card by default, in the mode it ships with) over
 ``2 + 3·supersteps·chunks`` frames three times: [A, B], [B, A] and [A, B]
@@ -19,8 +19,8 @@ over the members, of an op of the same name and caller a few ops away):
 run. For each comparison the tool prints the number of ops recorded, the
 number that disagree, and the first that does: its name, the source line in
 ``sdvo_tpu_torch`` that called it, its input and output shapes, and whether
-its inputs agreed (then the op itself is the one that differs). The whole
-report goes to ``chiprun_out/trace_isolation.json``. Imports nothing of JAX.
+its inputs agreed (then the op itself is the one that differs); ``--out``
+writes the whole report as JSON. Imports nothing of JAX.
 """
 
 import argparse
@@ -137,6 +137,7 @@ def main() -> int:
     ap.add_argument("--seeds", default="0,4")
     ap.add_argument("--supersteps", type=int, default=2, help="supersteps a joint chunk")
     ap.add_argument("--chunks", type=int, default=1, help="joint chunks recorded")
+    ap.add_argument("--out", default=None, help="a JSON file for the whole report")
     args = ap.parse_args()
 
     import chip_smoke
@@ -168,9 +169,10 @@ def main() -> int:
                "A_same_bits_in_slot_1": a_slot, "A_same_bits_run_to_run": a_run, "reports": reports}
     for r in reports:
         print(json.dumps(r), flush=True)
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "trace_isolation.json"), "w") as f:
-        json.dump(summary, f, indent=1)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(summary, f, indent=1)
     print(json.dumps({k: v for k, v in summary.items() if k != "reports"}), flush=True)
     return 0
 
