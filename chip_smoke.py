@@ -141,7 +141,8 @@ def check_kernels(device, failures):
         if not ok:
             failures.append(f"{name} disagrees with its plain version: {err}")
         # K1's levels sum to one row a frame; K4's extra shapes are rows of their own
-        row = K1_HOST_ROW if name.startswith(selfcheck.HOST_LM) else name if "[" in name and base == "depth_scores" else base
+        row = (K1_HOST_ROW if name.startswith(selfcheck.HOST_LM)
+               else name if base == "depth_scores" else base)
         r = rows.setdefault(row, {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
                                    "bound_ms": 0.0, "t_bytes": 0.0, "t_flops": 0.0,
                                    "device_ms_cold": cold_ms})

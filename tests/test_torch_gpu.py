@@ -269,7 +269,8 @@ def test_device_system_gives_the_same_bits_every_run():
     """``DeviceSystem`` runs deterministic on the card without the caller
     doing anything: two runs over the KITTI-sized ridge scene (texture 0,
     2 + 12 frames, chunks of two supersteps) give the same trajectory bit
-    for bit, and the process has cuBLAS's fixed workspace."""
+    for bit, and the process has a fixed cuBLAS workspace (the package sets
+    ``:4096:8`` unless the caller set one)."""
     import os
 
     import numpy as np
@@ -279,7 +280,7 @@ def test_device_system_gives_the_same_bits_every_run():
     from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
 
     _cuda()
-    assert os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8"
+    assert os.environ.get("CUBLAS_WORKSPACE_CONFIG") in (":4096:8", ":16:8")  # cuBLAS's two fixed ones
     config = load_config(overrides={  # bench.py's
         "initialization": {"disparity_threshold": 3, "threshold_gradient_magnitude": 20}})
     frames = render_bench_sequences((0,), 2 + 2 * 6)[0][0]

@@ -114,7 +114,8 @@ def main() -> int:
         runs = {}
         for pkg in ("jax", "port"):
             if pkg == "jax":
-                ds = JDeviceSystem(j_load_config(overrides=overrides), supersteps_per_chunk=chip_smoke.SUPERSTEPS_PER_CHUNK)
+                ds = JDeviceSystem(j_load_config(overrides=overrides),
+                                   supersteps_per_chunk=chip_smoke.SUPERSTEPS_PER_CHUNK)
             elif args.own_draws:
                 ds = DeviceSystem(chip_smoke.bench_config(), supersteps_per_chunk=chip_smoke.SUPERSTEPS_PER_CHUNK,
                                   device="cpu")

@@ -13,9 +13,10 @@ dispatches, with the digest of each input and output tensor as it is and
 with the halves of each axis of even length swapped (the batch axis is one
 of them, or the axis a batching rule folds it into). An op agrees between
 two runs where each of its outputs in the second run has the digest of the
-first run's output or of one of those swaps (or, for a loop
-over the members, of an op of the same name and caller a few ops away):
-[B, A] against [A, B] asks whether any op rounds a member by its slot, [A, B] against itself whether any op changes its bits from run to
+first run's output or of one of those swaps (or, for a loop over the
+members, of an op of the same name and caller a few ops away): [B, A]
+against [A, B] asks whether any op rounds a member by its slot, [A, B]
+against itself whether any op changes its bits from run to
 run. For each comparison the tool prints the number of ops recorded, the
 number that disagree, and the first that does: its name, the source line in
 ``sdvo_tpu_torch`` that called it, its input and output shapes, and whether
