@@ -9,7 +9,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    main path's shapes (K1: 256 features at all four levels, and the host
    path's 512 features at 12 iterations a level; K2: 150; K3: 150; K4: 512
    filters × 16 steps, one reference patch a filter; and K4 at the extra
-   shapes of ``selfcheck.depth_extra_problems``, rows of their own) and
+   shapes of ``selfcheck.depth_extra_problems``, rows of their own, which
+   no path runs: their rows say ``"on_path": false`` and 0 launches) and
    times both: the wrapper on the host clock, the kernel
    alone on the device with its inputs warm in the L2 cache (beside an empty
    kernel), the least time the card could take for the same work
@@ -54,8 +55,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    aggregate and per-sequence frames/s at S = 8 and at S = 1 (two timed
    chunks after one warm-up), beside the main path's.
 10. Isolation: sequence 0 of a batch of two gets the same bits beside
-   another texture, and the same bits in the other slot (each sequence
-   keeping its RANSAC seed).
+   another texture, and, bootstrapped once, the same outputs and state
+   bits from the joint chunks in the other slot.
 11. Prints the kernels' JSON line, then last the device JSON line.
 
 Imports nothing of JAX. Exits non-zero on any failure, without a result;
@@ -63,6 +64,7 @@ alone, without the package beside it, it fails at its first import of
 ``sdvo_tpu_torch`` (exit code 1).
 """
 
+import contextlib
 import hashlib
 import json
 import os
@@ -109,7 +111,8 @@ def check_kernels(device, failures):
     print("library_ms: none for any of the four kernels: no single PyTorch call computes a whole "
           "LM solve or a fused sample-centre-ZSSD pass", flush=True)
     rows = {}
-    for name, args, kw in selfcheck.kernel_problems(device) + selfcheck.depth_extra_problems(device):
+    extra = selfcheck.depth_extra_problems(device)
+    for name, args, kw in selfcheck.kernel_problems(device) + extra:
         base = name.split("[")[0]
         kernel, plain = selfcheck.case_calls(name, args, kw)
         got, want = kernel(), plain()
@@ -145,7 +148,8 @@ def check_kernels(device, failures):
                else name if base == "depth_scores" else base)
         r = rows.setdefault(row, {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
                                    "bound_ms": 0.0, "t_bytes": 0.0, "t_flops": 0.0,
-                                   "device_ms_cold": cold_ms})
+                                   "device_ms_cold": cold_ms,
+                                   "on_path": name not in {e[0] for e in extra}})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         for key, value in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
                            ("bound_ms", bound.ms),  # K1: summed over the four levels of one frame
@@ -227,7 +231,8 @@ def check_batched_kernels(device, failures, rows, empty_ms: float):
             failures.append(f"{name} disagrees with its plain version: {err}")
         row = f"{base}[S{BATCH}]"
         r = out.setdefault(row, {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-                                 "bound_ms": 0.0, "t_bytes": 0.0, "t_flops": 0.0, "device_ms_cold": None})
+                                 "bound_ms": 0.0, "t_bytes": 0.0, "t_flops": 0.0, "device_ms_cold": None,
+                                 "on_path": True})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if cold_ms is not None:
             r["device_ms_cold"] = (r["device_ms_cold"] or 0.0) + cold_ms
@@ -572,30 +577,82 @@ def _centres(trajectory):
     return np.asarray([-T[:3, :3].T @ T[:3, 3] for T in trajectory])
 
 
+def _bits(tree):
+    """The tensor leaves of a state or output tree as numpy arrays."""
+    from sdvo_tpu_torch.parallel.mesh import tree_map
+
+    leaves = []
+    tree_map(lambda x: leaves.append(x.cpu().numpy()), tree)
+    return leaves
+
+
+def joint_by_slot(pair, supersteps: int, n_chunks: int, orders=((0, 1), (1, 0)),
+                  around=lambda k: contextlib.nullcontext(), device=None):
+    """The two sequences of ``pair`` bootstrapped once by
+    ``MultiSequenceSystem`` (two host frames each), then ``n_chunks`` joint
+    chunks of ``supersteps`` supersteps of the vmapped superstep
+    (``multi_chunk_fn``, in the mode the joint phase runs in) on their states
+    stacked in each order of ``orders``, the k-th inside ``around(k)``, on
+    ``device`` (the card by default).
+    Returns for each order, by sequence (not slot), the numpy arrays of that
+    sequence's frame outputs and final state: a sequence in another slot
+    starts from the same bits, so only the superstep can make them differ."""
+    import torch
+
+    from sdvo_tpu_torch.device import deterministic_on
+    from sdvo_tpu_torch.parallel import MultiSequenceSystem
+    from sdvo_tpu_torch.parallel.multi_seq import multi_chunk_fn, stack_states, unstack_states
+
+    ms = MultiSequenceSystem(bench_config(), 2, supersteps_per_chunk=supersteps, device=device)
+    ms.bootstrap([s[:2] for s in pair])  # raises unless both bootstrap on their first two frames
+    device, per, fn = ms.groups[0][0], ms.period, multi_chunk_fn(ms.vo)
+    n = supersteps * per
+    results = []
+    for k, order in enumerate(orders):
+        state, outs = stack_states([ms.subs[i].state for i in order]), []
+        with around(k), deterministic_on(device):
+            for c in range(n_chunks):
+                imgs = np.stack([np.stack(pair[i][2 + c * n:2 + (c + 1) * n]) for i in order])
+                imgs = imgs.astype(np.float32).reshape(2, supersteps, per, *imgs.shape[2:])
+                imgs = np.ascontiguousarray(imgs.transpose(1, 0, 2, 3, 4))  # (C, S, per, H, W)
+                state, out = fn(state, torch.from_numpy(imgs).to(device))
+                outs.append(out)
+        finals = unstack_states(state, 2)
+        by_seq = [None, None]
+        for slot, i in enumerate(order):
+            by_seq[i] = [x[:, slot] for o in outs for x in _bits(o)] + _bits(finals[slot])
+        results.append(by_seq)
+    return results
+
+
+def same_bits(xs, ys) -> bool:
+    """Whether two lists of arrays hold the same bits (NaNs too)."""
+    return len(xs) == len(ys) and all(
+        x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes() for x, y in zip(xs, ys))
+
+
 def run_isolation(seqs):
     """Each sequence of ``MultiSequenceSystem`` owns its map: sequence 0 gets
     the same bits beside sequence 1 as beside sequence 2 (S = 2, two joint
-    chunks), and the same bits in slot 1 as in slot 0 (each sequence keeps
-    its RANSAC seed, so it bootstraps alike in either slot): no op rounds a
-    member by its place in the batch."""
+    chunks), and, bootstrapped once, the same frame outputs and final state
+    in slot 1 as in slot 0 (``joint_by_slot``): no op of the vmapped
+    superstep rounds a member by its place in the batch."""
     from sdvo_tpu_torch.parallel import MultiSequenceSystem
 
-    def run(pair, seeds):
-        ms = MultiSequenceSystem(bench_config(), 2, supersteps_per_chunk=ISO_SUPERSTEPS, seeds=seeds)
+    def run(pair):
+        ms = MultiSequenceSystem(bench_config(), 2, supersteps_per_chunk=ISO_SUPERSTEPS)
         return ms.run([s[:ISO_FRAMES] for s in pair])
 
-    a, b, c = run([seqs[0], seqs[1]], [0, 1]), run([seqs[0], seqs[2]], [0, 2]), run([seqs[1], seqs[0]], [1, 0])
+    a, b = run([seqs[0], seqs[1]]), run([seqs[0], seqs[2]])
     same = np.array_equal(np.asarray(a[0]["trajectory"]), np.asarray(b[0]["trajectory"]))
-    ca, cc = _centres(a[0]["trajectory"]), _centres(c[1]["trajectory"])
-    path = float(np.sum(np.linalg.norm(np.diff(ca, axis=0), axis=-1)))
-    apart = float(np.linalg.norm(ca - cc, axis=-1).max())
-    slot_bits = np.array_equal(np.asarray(a[0]["trajectory"]), np.asarray(c[1]["trajectory"]))
+    in0, in1 = joint_by_slot([seqs[0], seqs[1]], ISO_SUPERSTEPS, 2)
+    differ = [sum(not same_bits([x], [y]) for x, y in zip(in0[i], in1[i])) for i in range(2)]
     print(f"isolation ({ISO_FRAMES} frames, S = 2): sequence 0 beside sequences 1 and 2: "
-          f"{'the same bits' if same else 'DIFFERENT bits'}; in slot 1 instead of 0: "
-          f"{'the same bits' if slot_bits else 'other bits'}, centres at most {apart:.3e} m apart "
-          f"({100 * apart / path:.4f} % of the {path:.2f} m path)", flush=True)
+          f"{'the same bits' if same else 'DIFFERENT bits'}; sequences 0 and 1 swapped after the "
+          f"bootstrap: {differ[0]} and {differ[1]} of {len(in0[0])} output and state arrays differ "
+          f"by their slot", flush=True)
     _require(same, "a sequence's result depends on another sequence of its batch")
-    _require(slot_bits, "a sequence's trajectory changed with its slot in the batch")
+    _require(differ == [0, 0], "a sequence's outputs changed with its slot in the batch")
 
 
 def main() -> int:
@@ -647,17 +704,19 @@ def main() -> int:
         base = name.split("[")[0]
         src, replaces = SOURCES[base]
         # K1's row at the host path's shape counts that path's launches, the
-        # batched rows the multi-sequence path's (a frame step: every sequence)
+        # batched rows the multi-sequence path's (a frame step: every
+        # sequence); K4's extra shapes run on no path, so launch none there
         on_path, n_path = ((launches_host, host_frames) if name == K1_HOST_ROW
                            else (launches_multi, multi_steps) if name.endswith(f"[S{BATCH}]")
                            else (launches, steady_frames))
+        n = on_path[base] if r["on_path"] else 0
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": on_path[base], "max_abs_err": r["max_abs_err"],
+                        "launches": n, "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
                         "device_ms": r["device_ms"], "device_ms_cold": r["device_ms_cold"],
-                        "launches_per_frame": on_path[base] / n_path,
-                        "launches_host_path": launches_host[base]})
+                        "launches_per_frame": n / n_path, "on_path": r["on_path"],
+                        "launches_host_path": launches_host[base] if r["on_path"] else 0})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

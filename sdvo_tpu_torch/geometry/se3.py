@@ -5,11 +5,12 @@ tangent convention ``tau = [upsilon, omega]`` (translation first), as Sophus
 and the JAX reference. Nothing on the port's path needs gradients, so the
 small-angle branches are plain ``torch.where`` selects.
 
-Every 3×3 product is written out as three-term sums of elementwise products
-(``_mm``, ``_mv``), not as a matmul or an einsum: a batched matmul (what
+Every 3×3 product is a broadcast multiply and a sum over the size-3 axis
+(``_mm``, ``_mv``), not a matmul or an einsum: a batched matmul (what
 ``torch.func.vmap`` makes of one, or a call on a stack of poses) may round a
-member by its place in the batch, and elementwise ops give each element the
-same bits at any batch size and in any slot, on the CPU and on the card.
+member by its place in the batch, while one reduction launch sums every
+output's three terms in the same order, so a member gets the same bits in
+any slot, on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -23,15 +24,14 @@ _EPS = 1e-8
 
 
 def _mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """A @ B of (..., 3, 3) matrices (broadcasting), as
-    ``A[i,0]·B[0,j] + A[i,1]·B[1,j] + A[i,2]·B[2,j]`` summed left to right."""
-    return (A[..., :, 0, None] * B[..., None, 0, :] + A[..., :, 1, None] * B[..., None, 1, :]
-            + A[..., :, 2, None] * B[..., None, 2, :])
+    """A @ B of (..., 3, 3) matrices (broadcasting): the products
+    ``A[i,k]·B[k,j]`` in one launch, summed over k in another."""
+    return (A[..., :, :, None] * B[..., None, :, :]).sum(-2)
 
 
 def _mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """A @ v of (..., 3, 3) by (..., 3) (broadcasting), summed as ``_mm``."""
-    return A[..., 0] * v[..., 0, None] + A[..., 1] * v[..., 1, None] + A[..., 2] * v[..., 2, None]
+    """A @ v of (..., 3, 3) by (..., 3) (broadcasting), as ``_mm``."""
+    return (A * v[..., None, :]).sum(-1)
 
 
 class SE3(NamedTuple):

@@ -117,16 +117,13 @@ class MultiSequenceSystem:
     the bundle adjustment's float ``index_add`` would otherwise sum by
     atomic adds in whatever order the threads reach them, and a sequence
     would not get the same bits from one run to the next. ``ransac_uniforms``: one array (or None)
-    per sequence, for the host bootstrap. ``seeds``: the seed of each
-    sequence's ``DeviceSystem`` (its RANSAC draws), by default its slot, as
-    in the reference; a sequence that keeps its seed bootstraps alike in any
-    slot. ``ds_kwargs`` go to every ``DeviceSystem``.
+    per sequence, for the host bootstrap. ``ds_kwargs`` go to every
+    ``DeviceSystem``.
     """
 
     def __init__(self, config, n_seq: int, camera=None, supersteps_per_chunk: int = 8,
                  mesh: Optional[VOMesh] = None, device=None,
-                 ransac_uniforms: Optional[Sequence[Optional[np.ndarray]]] = None,
-                 seeds: Optional[Sequence[int]] = None, **ds_kwargs):
+                 ransac_uniforms: Optional[Sequence[Optional[np.ndarray]]] = None, **ds_kwargs):
         self.n_seq = n_seq
         self.mesh = mesh
         if mesh is None:
@@ -136,11 +133,8 @@ class MultiSequenceSystem:
         uniforms = list(ransac_uniforms) if ransac_uniforms is not None else [None] * n_seq
         if len(uniforms) != n_seq:
             raise ValueError(f"{len(uniforms)} RANSAC draws for {n_seq} sequences")
-        seeds = list(seeds) if seeds is not None else list(range(n_seq))
-        if len(seeds) != n_seq:
-            raise ValueError(f"{len(seeds)} seeds for {n_seq} sequences")
         self.subs = [
-            DeviceSystem(config, camera=camera, seed=seeds[i], supersteps_per_chunk=supersteps_per_chunk,
+            DeviceSystem(config, camera=camera, seed=i, supersteps_per_chunk=supersteps_per_chunk,
                          device=dev, ransac_uniforms=uniforms[i], **ds_kwargs)
             for dev, members in self.groups for i in members
         ]

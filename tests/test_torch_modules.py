@@ -135,8 +135,8 @@ def _se3_ops():
 def test_se3_ops_give_each_member_its_own_bits_under_vmap(batch):
     """``torch.func.vmap`` of every se3 operation gives each member of the
     batch the bits of its own unbatched call, whatever slot it sits in (its
-    3×3 products are sums of elementwise products, so no batched matmul can
-    round a member by its place): a batch of one, and a batch of three
+    3×3 products are a broadcast multiply and a sum over the size-3 axis, so
+    no batched matmul can round a member by its place): a batch of one, and a batch of three
     rolled through every slot. float32, the device path's type."""
     rng = np.random.default_rng(17)
     taus = rng.normal(0, 0.4, size=(batch, 6)).astype(np.float32)

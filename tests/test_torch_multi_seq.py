@@ -307,13 +307,14 @@ def test_multi_seq_matches_device_system_alone(runs):
 
 
 def test_a_sequence_gets_the_same_bits_in_either_slot(runs):
-    """The two sequences swapped, each keeping its RANSAC draws and seed:
+    """The two sequences swapped, each keeping its RANSAC draws (the first
+    bootstrap attempt takes them, so the seed of the slot plays no part):
     each gets the bits of its run in the other slot, frame for frame: no op
     of the vmapped superstep rounds a member by its slot. (On the CPU this
     held with matmuls in ``se3`` too; on the card batched cuBLAS products
     did round by slot, which ``test_torch_gpu`` checks.)"""
     ms = MultiSequenceSystem(load_config(overrides=OVERRIDES), N_SEQ, camera=PinholeCamera.create(**CAM),
-                             device="cpu", ransac_uniforms=runs["uniforms"][::-1], seeds=[1, 0], **KW)
+                             device="cpu", ransac_uniforms=runs["uniforms"][::-1], **KW)
     swapped = ms.run(runs["seqs"][::-1])
     for i in range(N_SEQ):
         np.testing.assert_array_equal(np.asarray(swapped[N_SEQ - 1 - i]["trajectory"]),

@@ -4,10 +4,11 @@ sequence's slot in the batch, or on the run.
 
 Run from the repository root: ``python3 tools/trace_isolation.py [--device
 cuda|cpu] [--seeds 0,4] [--supersteps 2] [--chunks 1] [--out FILE]``. Renders two
-textures A and B of bench.py's scene and runs ``MultiSequenceSystem`` (S = 2,
-on the card by default, in the mode it ships with) over
-``2 + 3·supersteps·chunks`` frames three times: [A, B], [B, A] and [A, B]
-again, each sequence with the RANSAC seed of its first slot. During the
+textures A and B of bench.py's scene, bootstraps them once through
+``MultiSequenceSystem`` (S = 2, on the card by default) and runs the joint
+chunks of the vmapped superstep, in the mode the joint phase ships with, on
+their states stacked three times: [A, B], [B, A] and [A, B] again
+(``chip_smoke.joint_by_slot``). During the
 joint chunks a ``TorchDispatchMode`` records every op the vmapped superstep
 dispatches, with the digest of each input and output tensor as it is and
 with the halves of each axis of even length swapped (the batch axis is one
@@ -144,28 +145,23 @@ def main() -> int:
     import chip_smoke
     from sdvo_tpu_torch.dataio.synthetic import render_bench_sequences
     from sdvo_tpu_torch.device import resolve_device
-    from sdvo_tpu_torch.parallel import MultiSequenceSystem
 
     device = resolve_device(args.device)
     seeds = [int(s) for s in args.seeds.split(",")]
     n_frames = 2 + chip_smoke.PER * args.supersteps * args.chunks
-    a, b = [r[0] for r in render_bench_sequences(seeds, n_frames)]
-    records, trajectories = {}, {}
-    for label, pair, order in (("AB", [a, b], [0, 1]), ("BA", [b, a], [1, 0]), ("AB again", [a, b], [0, 1])):
-        t0 = time.perf_counter()
-        ms = MultiSequenceSystem(chip_smoke.bench_config(), 2, supersteps_per_chunk=args.supersteps,
-                                 device=device, seeds=order)  # each sequence keeps its RANSAC draws
-        ms.bootstrap(pair)
-        with OpRecord() as rec:
-            ms.joint(pair)
-        res = ms.tail(pair)
-        records[label] = rec.ops
-        trajectories[label] = [np.asarray(r["trajectory"]) for r in res]
-        print(f"run {label}: {len(rec.ops)} ops recorded in {time.perf_counter() - t0:.1f} s", flush=True)
+    pair = [r[0] for r in render_bench_sequences(seeds, n_frames)]
+    labels = ("AB", "BA", "AB again")
+    recs = [OpRecord() for _ in labels]
+    t0 = time.perf_counter()
+    by_order = chip_smoke.joint_by_slot(pair, args.supersteps, args.chunks, orders=((0, 1), (1, 0), (0, 1)),
+                                        around=lambda k: recs[k], device=device)
+    records = dict(zip(labels, (r.ops for r in recs)))
+    print(f"runs {', '.join(f'{k}: {len(v)} ops' for k, v in records.items())} recorded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     reports = [compare(records["AB"], records["BA"], "slot: [B, A] against [A, B]"),
                compare(records["AB"], records["AB again"], "run: [A, B] against [A, B]")]
-    a_slot = np.array_equal(trajectories["AB"][0], trajectories["BA"][1])
-    a_run = np.array_equal(trajectories["AB"][0], trajectories["AB again"][0])
+    a_slot = chip_smoke.same_bits(by_order[0][0], by_order[1][0])
+    a_run = chip_smoke.same_bits(by_order[0][0], by_order[2][0])
     summary = {"device": str(device), "seeds": seeds, "frames": n_frames,
                "A_same_bits_in_slot_1": a_slot, "A_same_bits_run_to_run": a_run, "reports": reports}
     for r in reports:
