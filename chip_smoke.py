@@ -57,7 +57,21 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 10. Isolation: sequence 0 of a batch of two gets the same bits beside
    another texture, and, bootstrapped once, the same outputs and state
    bits from the joint chunks in the other slot.
-11. Prints the kernels' JSON line, then last the device JSON line.
+11. The ``shard`` axis (``run_shard_axis``): the distributed Schur BA at
+   the SCALING_MP.json workload (16 keyframes, 32,768 points, 4
+   observations a point, 4 LM iterations, float32) with 1 and 4 in-process
+   shards on the card: 4 against 1, two 4-shard runs bit for bit, chi² not
+   increasing, the card against the CPU in float64; the payload of 20,736
+   bytes; the same solve through a one-rank NCCL group formed by
+   ``initialize_from_env``, bit for bit the single shard's; the pose graph
+   at 512 keyframes with 32 loop edges, 1 and 4 edge shards, the loop
+   pulling the chain's end onto the truth. Prints ms an iteration and the
+   reduction's share.
+12. Diagnostics (``run_diagnostics``): ``System`` on the card with
+   visualization on (saving_type "None") and an in-memory sink: every
+   alignment level and pose polish emits finite residuals and weights and
+   a symmetric JᵀWJ, without PIL or matplotlib.
+13. Prints the kernels' JSON line, then last the device JSON line.
 
 Imports nothing of JAX. Exits non-zero on any failure, without a result;
 alone, without the package beside it, it fails at its first import of
@@ -655,6 +669,374 @@ def run_isolation(seqs):
     _require(differ == [0, 0], "a sequence's outputs changed with its slot in the batch")
 
 
+# the shard axis at the SCALING_MP.json workload: K keyframes, P points each
+# seen by OBS consecutive keyframes, ITERS LM iterations, float32 on the card
+SHARD_K, SHARD_P, SHARD_OBS, SHARD_ITERS, SHARD_S = 16, 32768, 4, 4, 4
+PG_N, PG_LOOPS, PG_ITERS = 512, 32, 10  # a KITTI sequence's keyframe chain and its loop closures
+KITTI_CAM = (721.5377, 721.5377, 609.5593, 172.854)  # fx, fy, cx, cy of the workload (KITTI)
+# 4 shards against 1 (another summation order): poses in metres and radians, chi² relative
+SHARD_POSE_TOL, SHARD_CHI_TOL = 1e-4, 1e-4
+# the card (float32) against the port on the CPU in float64, same problem and shards (on
+# the CPU in float32 the gap is 6.7e-6 m, 2.2e-7 rad and 5.0e-7 of chi²)
+F64_POSE_TOL, F64_CHI_TOL = 1e-4, 1e-5
+REFINE_TOL = 0.05  # the refine keeps the BA window's relative poses (m, rad), as test_pose_graph.py holds
+# the pose graph, 4 edge shards against 1, float32: camera centres (m), rotations (rad) and chi²
+# (relative). Around a 628 m loop the LM ends in a flat valley (on the CPU chi² 0.010880 after 10
+# iterations in float32, 0.010862 in float64, whose poses lie up to 2.8 m away), where another
+# summation order accepts other steps: 4.2 cm and 4.0e-4 rad apart on the card
+PG_SHARD_POSE_TOL, PG_SHARD_ROT_TOL, PG_SHARD_CHI_TOL = 0.1, 1e-3, 1e-3
+SYM_TOL = 1e-4  # JᵀWJ's asymmetry relative to its largest entry: float32 products summed in another order
+
+
+def shard_ba_problem(seed: int = 0):
+    """The workload of ``tools/bench_scaling_mp.py`` (SCALING_MP.json): 16
+    keyframes exp([0.3k, 0.01k, 0.08k, 0, 0.01k, 0]), 32,768 points uniform
+    in [−10, 10] × [−5, 5] × [8, 40] m, each seen by 4 keyframes drawn at
+    random with 0.3 px of noise (observations behind a camera invalid);
+    the solve starts from the true poses and the points moved by 0.1 m,
+    keyframes 0 and 1 fixed. numpy float64."""
+    import torch
+
+    from sdvo_tpu_torch.geometry import se3
+
+    g = np.random.default_rng(seed)
+    K, P, M = SHARD_K, SHARD_P, SHARD_OBS
+    fx, fy, cx, cy = KITTI_CAM
+    k = np.arange(K, dtype=np.float64)
+    tau = np.stack([0.3 * k, 0.01 * k, 0.08 * k, 0 * k, 0.01 * k, 0 * k], -1)
+    T = se3.exp(torch.tensor(tau))
+    R, t = T.rotation.numpy(), T.translation.numpy()
+    pts = g.uniform([-10, -5, 8], [10, 5, 40], (P, 3))
+    cam = np.argsort(g.random((P, K)), axis=1)[:, :M].reshape(-1)
+    pid = np.repeat(np.arange(P), M)
+    pc = np.einsum("mij,mj->mi", R[cam], pts[pid]) + t[cam]
+    uv = np.stack([fx * pc[:, 0] / pc[:, 2] + cx, fy * pc[:, 1] / pc[:, 2] + cy], -1) + g.normal(0, 0.3, (P * M, 2))
+    fixed = np.zeros(K, bool)
+    fixed[:2] = True
+    return dict(R=R, t=t, pts=pts + g.normal(0, 0.1, pts.shape), cam=cam.astype(np.int32),
+                pid=pid.astype(np.int32), uv=uv, valid=pc[:, 2] > 0.1, fixed=fixed)
+
+
+def _ba_inputs(prob, shards: int, devices, dtype, group_rank=None):
+    """(poses, the positional arguments after them, mesh) of
+    ``distributed_local_ba`` for ``prob`` cut into ``shards`` landmark shards
+    on ``devices`` (one a shard), or, in a process group, this rank's shard
+    ``group_rank`` alone on its device (no mesh)."""
+    import torch
+
+    from sdvo_tpu_torch.geometry.se3 import SE3
+    from sdvo_tpu_torch.parallel import make_vo_mesh, shard_observations
+
+    s_cam, s_pt, s_uv, s_valid, s_table, s_points = shard_observations(
+        prob["cam"], prob["pid"], prob["uv"], prob["valid"], SHARD_P, shards, SHARD_OBS)
+    pts = np.where((s_points >= 0)[..., None], prob["pts"][np.maximum(s_points, 0)], 0.0)
+    arrays = [pts, s_cam, s_pt, s_uv, s_valid, s_table]
+    mesh = make_vo_mesh(num_shard=shards, devices=devices)
+    if group_rank is not None:
+        arrays = [a[group_rank:group_rank + 1] for a in arrays]
+        mesh = None
+    dev = torch.device(devices[0])
+    t = [torch.from_numpy(a).to(dev) for a in arrays]
+    t[0] = t[0].to(dtype)
+    poses = SE3(torch.from_numpy(prob["R"]).to(dev, dtype), torch.from_numpy(prob["t"]).to(dev, dtype))
+    return poses, (*t, torch.from_numpy(prob["fixed"]).to(dev), *KITTI_CAM), mesh
+
+
+def run_dist_ba(prob, shards: int, devices, dtype, iterations: int = SHARD_ITERS, group_rank=None):
+    """``distributed_local_ba`` on ``prob`` (``_ba_inputs``)."""
+    from sdvo_tpu_torch.parallel import distributed_local_ba
+
+    poses, args, mesh = _ba_inputs(prob, shards, devices, dtype, group_rank)
+    return distributed_local_ba(poses, *args, mesh=mesh, num_cams=SHARD_K, iterations=iterations)
+
+
+def run_ba_refine(prob, shards: int, device, dtype, older: int = 4):
+    """``ba_with_pose_graph_refine``: the window of ``prob`` after ``older``
+    keyframes that continue its path backwards, its BA on ``shards``
+    landmark shards, then the pose graph over the whole trajectory on as
+    many edge shards."""
+    import torch
+
+    from sdvo_tpu_torch.geometry import se3
+    from sdvo_tpu_torch.geometry.se3 import SE3
+    from sdvo_tpu_torch.parallel import ba_with_pose_graph_refine
+
+    poses, args, mesh = _ba_inputs(prob, shards, [device] * shards, dtype)
+    k = torch.arange(-older, 0, dtype=torch.float64)
+    pre = se3.exp(torch.stack([0.3 * k, 0.01 * k, 0.08 * k, 0 * k, 0.01 * k, 0 * k], -1))
+    poses_all = SE3(torch.cat([pre.rotation.to(device, dtype), poses.rotation]),
+                    torch.cat([pre.translation.to(device, dtype), poses.translation]))
+    return ba_with_pose_graph_refine(poses_all, older, args, mesh=mesh, num_shards=shards, num_cams=SHARD_K,
+                                     iterations=SHARD_ITERS)
+
+
+def pose_graph_problem(seed: int = 1):
+    """``PG_N`` keyframes around a circle of 100 m (1.23 m apart), world →
+    camera, facing forward; the odometry chain integrated with 2 cm and
+    2 mrad of noise a step (the initial poses, drifted) and ``PG_LOOPS``
+    exact loop edges across the closure (information 10·I). numpy float64."""
+    import torch
+
+    from sdvo_tpu_torch.geometry import se3
+    from sdvo_tpu_torch.geometry.se3 import SE3
+
+    g = np.random.default_rng(seed)
+    N = PG_N
+    th = 2.0 * np.pi * np.arange(N) / N
+    c = np.stack([100.0 * np.cos(th), 100.0 * np.sin(th), np.zeros(N)], -1)
+    fwd = np.stack([-np.sin(th), np.cos(th), np.zeros(N)], -1)
+    up = np.broadcast_to([0.0, 0.0, 1.0], (N, 3))
+    R = np.stack([np.cross(fwd, up), -up, fwd], 1)
+    gt = SE3(torch.tensor(R), -torch.einsum("nij,nj->ni", torch.tensor(R), torch.tensor(c)))
+    pick = lambda T, i: SE3(T.rotation[i], T.translation[i])  # noqa: E731
+    Z = pick(gt, slice(1, None)).compose(pick(gt, slice(None, -1)).inverse())
+    eps = torch.tensor(np.concatenate([g.normal(0, 0.02, (N - 1, 3)), g.normal(0, 0.002, (N - 1, 3))], -1))
+    Zn = se3.exp(eps).compose(Z)
+    Rs, ts = [gt.rotation[0]], [gt.translation[0]]
+    for k in range(N - 1):
+        Rs.append(Zn.rotation[k] @ Rs[-1])
+        ts.append(Zn.rotation[k] @ ts[-1] + Zn.translation[k])
+    j = np.arange(PG_LOOPS)
+    i = N - PG_LOOPS + j
+    Zl = pick(gt, torch.tensor(i)).compose(pick(gt, torch.tensor(j)).inverse())
+    eye6 = np.eye(6)
+    edges = (np.r_[np.arange(1, N), i].astype(np.int32), np.r_[np.arange(N - 1), j].astype(np.int32),
+             np.concatenate([Zn.rotation.numpy(), Zl.rotation.numpy()]),
+             np.concatenate([Zn.translation.numpy(), Zl.translation.numpy()]),
+             np.concatenate([np.broadcast_to(eye6, (N - 1, 6, 6)), np.broadcast_to(10.0 * eye6, (PG_LOOPS, 6, 6))]),
+             np.ones(N - 1 + PG_LOOPS, bool))
+    return dict(R=torch.stack(Rs).numpy(), t=torch.stack(ts).numpy(), edges=edges,
+                R_gt=gt.rotation.numpy(), t_gt=gt.translation.numpy())
+
+
+def run_pose_graph(prob, shards: int, device, dtype, iterations: int = PG_ITERS):
+    """``optimize_pose_graph`` (one shard) or ``distributed_pose_graph`` over
+    ``shards`` edge shards on ``device``."""
+    import torch
+
+    from sdvo_tpu_torch.geometry.se3 import SE3
+    from sdvo_tpu_torch.parallel import PoseGraphEdges, distributed_pose_graph, make_vo_mesh
+    from sdvo_tpu_torch.parallel import optimize_pose_graph
+    from sdvo_tpu_torch.parallel.pose_graph import shard_edges
+
+    edges = PoseGraphEdges(*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in prob["edges"]))
+    edges = edges._replace(R_meas=edges.R_meas.to(dtype), t_meas=edges.t_meas.to(dtype),
+                           info=edges.info.to(dtype))
+    poses = SE3(torch.from_numpy(prob["R"]).to(device, dtype), torch.from_numpy(prob["t"]).to(device, dtype))
+    fixed = torch.zeros(PG_N, dtype=torch.bool, device=device)
+    fixed[0] = True
+    if shards == 1:
+        return optimize_pose_graph(poses, edges, fixed, num_poses=PG_N, iterations=iterations)
+    mesh = make_vo_mesh(num_shard=shards, devices=[device] * shards)
+    return distributed_pose_graph(poses, shard_edges(edges, shards), fixed, mesh=mesh, num_poses=PG_N,
+                                  iterations=iterations)
+
+
+def _pose_gap(a, b):
+    """(largest camera-centre distance in metres, largest rotation angle in
+    radians) between two pose batches."""
+    Ra, ta = (x.detach().cpu().double().numpy() for x in a)
+    Rb, tb = (x.detach().cpu().double().numpy() for x in b)
+    ca, cb = -np.einsum("kji,kj->ki", Ra, ta), -np.einsum("kji,kj->ki", Rb, tb)
+    M = np.einsum("kji,kjl->kil", Ra, Rb)  # Raᵀ Rb; its skew part is sin θ · axis (angles below π/2)
+    s = 0.5 * np.stack([M[:, 2, 1] - M[:, 1, 2], M[:, 0, 2] - M[:, 2, 0], M[:, 1, 0] - M[:, 0, 1]], -1)
+    return float(np.linalg.norm(ca - cb, axis=-1).max()), float(np.arcsin(np.clip(np.linalg.norm(s, axis=-1), 0, 1)).max())
+
+
+def _sync_ms(fn, n: int = 3):
+    """Median wall ms of ``n`` calls of ``fn``, each ended by a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def run_shard_axis(card: str):
+    """The ``shard`` axis on the card: the distributed Schur BA at the
+    SCALING_MP.json workload with 1 and 4 in-process shards on ``cuda:0``
+    (4 against 1, two 4-shard runs bit for bit, chi² not increasing over
+    the LM, the card against the port on the CPU in float64), the same
+    solve through a one-rank NCCL group formed by ``initialize_from_env``
+    (the bits of the in-process single shard), and the pose graph at
+    ``PG_N`` keyframes with 1 and 4 edge shards (4 against 1, the loop
+    pulling the chain's end onto the truth). Prints ms an LM iteration, the
+    reduction's share of it, the payload bytes and the card."""
+    import socket
+
+    import torch
+
+    from sdvo_tpu_torch.parallel import dist_ba, distributed
+
+    f32 = torch.float32
+    card_dev = "cuda:0"
+    payload = dist_ba.payload_floats(SHARD_K)
+    payload_bytes = 4 * payload
+    _require(payload_bytes == 20736, f"the reduction's payload is {payload_bytes} B at K = {SHARD_K}, not 20,736")
+    prob = shard_ba_problem()
+    one = run_dist_ba(prob, 1, [card_dev], f32)
+    four = run_dist_ba(prob, SHARD_S, [card_dev] * SHARD_S, f32)
+    four_again = run_dist_ba(prob, SHARD_S, [card_dev] * SHARD_S, f32)
+    same = all(torch.equal(a, b) for a, b in zip((*four[0], *four[1:]), (*four_again[0], *four_again[1:])))
+    dc, dr = _pose_gap(four[0], one[0])
+    dchi = abs(float(four[2]) - float(one[2])) / float(one[2])
+    chis = [float(run_dist_ba(prob, 1, [card_dev], f32, iterations=n)[2]) for n in range(1, SHARD_ITERS)]
+    chis.append(float(one[2]))
+    ms_one = _sync_ms(lambda: run_dist_ba(prob, 1, [card_dev], f32)) / SHARD_ITERS
+    ms_four = _sync_ms(lambda: run_dist_ba(prob, SHARD_S, [card_dev] * SHARD_S, f32)) / SHARD_ITERS
+    parts = [torch.randn(payload, device=card_dev) for _ in range(SHARD_S)]
+    scalars = [torch.randn((), device=card_dev) for _ in range(SHARD_S)]
+    reps = 200
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        distributed.shard_sum(parts)
+        distributed.shard_sum(scalars)
+    stop.record()
+    torch.cuda.synchronize()
+    reduce_ms = start.elapsed_time(stop) / reps
+    t0 = time.perf_counter()
+    ref = run_dist_ba(prob, SHARD_S, ["cpu"] * SHARD_S, torch.float64)
+    cpu_s = time.perf_counter() - t0
+    fc, fr = _pose_gap(four[0], ref[0])
+    fchi = abs(float(four[2]) - float(ref[2])) / float(ref[2])
+    print(f"shard axis ({card}): distributed BA, K = {SHARD_K}, P = {SHARD_P}, {SHARD_OBS} observations a "
+          f"point, {SHARD_ITERS} LM iterations, float32: {ms_one:.3f} ms an iteration with 1 shard, "
+          f"{ms_four:.3f} ms with {SHARD_S} in-process shards on {card_dev} (a call's wall time over its "
+          f"iterations); the reduction (payload + chi², {SHARD_S} shards summed in order on one card) "
+          f"{reduce_ms:.4f} ms an iteration, {100 * reduce_ms / ms_four:.2f} % of it; payload "
+          f"{payload} floats = {payload_bytes} B an iteration; chi² over the LM {[round(c, 3) for c in chis]}",
+          flush=True)
+    print(f"shard axis: {SHARD_S} shards against 1: centres {dc:.3e} m, rotations {dr:.3e} rad, chi² "
+          f"{dchi:.3e} relative (tolerances {SHARD_POSE_TOL:g}, {SHARD_CHI_TOL:g}); two {SHARD_S}-shard runs: "
+          f"{'the same bits' if same else 'DIFFERENT bits'}; the card against the CPU in float64 "
+          f"({cpu_s:.1f} s there): centres {fc:.3e} m, rotations {fr:.3e} rad, chi² {fchi:.3e} relative "
+          f"(tolerances {F64_POSE_TOL:g}, {F64_CHI_TOL:g})", flush=True)
+    _require(same, "two 4-shard runs of the distributed BA gave different bits")
+    _require(dc < SHARD_POSE_TOL and dr < SHARD_POSE_TOL and dchi < SHARD_CHI_TOL,
+             f"4 shards against 1: {dc}, {dr}, {dchi}")
+    _require(all(b <= a for a, b in zip(chis, chis[1:])), f"chi² rose over the LM: {chis}")
+    _require(fc < F64_POSE_TOL and fr < F64_POSE_TOL and fchi < F64_CHI_TOL,
+             f"the card against the CPU in float64: {fc}, {fr}, {fchi}")
+
+    # BASELINE config 5's whole stack: the BA window, then the refine
+    older = 4
+    refined, _, chi_ba, chi_pg = run_ba_refine(prob, SHARD_S, card_dev, f32, older)
+    same_ba = torch.equal(chi_ba, four[2])
+    rel = lambda T, a, b: (T[0][b] @ T[0][a].T, T[1][b] - T[0][b] @ T[0][a].T @ T[1][a])  # noqa: E731
+    win = max(max(_pose_gap([x[None] for x in rel(refined, older + k - 1, older + k)],
+                            [x[None] for x in rel(four[0], k - 1, k)])) for k in range(1, SHARD_K))
+    R = refined[0].double()
+    ortho = float((R @ R.transpose(1, 2) - torch.eye(3, dtype=R.dtype, device=R.device)).abs().max())
+    print(f"shard axis: ba_with_pose_graph_refine over {older} + {SHARD_K} keyframes ({SHARD_S} landmark and "
+          f"edge shards): BA chi² {float(chi_ba):.3f} ({'the' if same_ba else 'NOT the'} distributed BA's), "
+          f"pose-graph chi² {float(chi_pg):.4g}; the window's relative poses move {win:.3e} (m or rad) from "
+          f"the BA's (tolerance {REFINE_TOL:g}); rotations orthonormal to {ortho:.1e}", flush=True)
+    _require(same_ba, "the refine's BA stage differs from distributed_local_ba on the same shards")
+    _require(bool(torch.isfinite(chi_pg)) and win < REFINE_TOL and ortho < 1e-5,
+             f"ba_with_pose_graph_refine: chi² {chi_pg}, window {win}, orthonormality {ortho}")
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"SDVO_COORDINATOR": f"127.0.0.1:{port}", "SDVO_NUM_PROCESSES": "1", "SDVO_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        _require(distributed.initialize_from_env(), "initialize_from_env formed no group")
+        info, backend = distributed.runtime_info(), torch.distributed.get_backend()
+        grouped = run_dist_ba(prob, 1, [card_dev], f32, group_rank=0)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k in env:
+            os.environ.pop(k)
+    same_group = all(torch.equal(a, b) for a, b in zip((*grouped[0], *grouped[1:]), (*one[0], *one[1:])))
+    print(f"shard axis: a one-rank {backend} group ({info}) gives {'the same' if same_group else 'DIFFERENT'} "
+          f"bits as the in-process single shard; NCCL puts no two ranks on one card, so no scaling figure",
+          flush=True)
+    _require(backend == "nccl" and info["platform"] == "gpu" and info["process_count"] == 1,
+             f"the group: {backend}, {info}")
+    _require(same_group, "the one-rank NCCL group's result differs from the in-process single shard")
+
+    pg = pose_graph_problem()
+    pg_one = run_pose_graph(pg, 1, card_dev, f32)
+    pg_four = run_pose_graph(pg, SHARD_S, card_dev, f32)
+    gc, gr = _pose_gap(pg_four[0], pg_one[0])
+    gchi = abs(float(pg_four[1]) - float(pg_one[1])) / float(pg_one[1])
+    gt = (torch.from_numpy(pg["R_gt"]), torch.from_numpy(pg["t_gt"]))
+    end = lambda T: _pose_gap((T[0][-1:], T[1][-1:]), (gt[0][-1:], gt[1][-1:]))[0]  # noqa: E731
+    end0, end1 = end((torch.from_numpy(pg["R"]), torch.from_numpy(pg["t"]))), end(pg_one[0])
+    pg_ms = _sync_ms(lambda: run_pose_graph(pg, 1, card_dev, f32)) / PG_ITERS
+    pg_ms4 = _sync_ms(lambda: run_pose_graph(pg, SHARD_S, card_dev, f32)) / PG_ITERS
+    print(f"shard axis ({card}): pose graph, N = {PG_N} keyframes, {PG_N - 1} odometry + {PG_LOOPS} loop "
+          f"edges, H {6 * PG_N}², {PG_ITERS} iterations, float32: {pg_ms:.3f} ms an iteration with 1 shard, "
+          f"{pg_ms4:.3f} ms with {SHARD_S} edge shards; {SHARD_S} against 1: centres {gc:.3e} m, rotations "
+          f"{gr:.3e} rad, chi² {gchi:.3e} relative (tolerances {PG_SHARD_POSE_TOL:g}, {PG_SHARD_ROT_TOL:g}, "
+          f"{PG_SHARD_CHI_TOL:g}); the chain's end {end0:.3f} m from the truth before, {end1:.3f} m after; "
+          f"chi² {float(pg_one[1]):.6g}, {float(pg_four[1]):.6g}", flush=True)
+    _require(gc < PG_SHARD_POSE_TOL and gr < PG_SHARD_ROT_TOL and gchi < PG_SHARD_CHI_TOL,
+             f"pose graph, 4 shards against 1: {gc}, {gr}, {gchi}")
+    _require(end1 < 0.5 * end0, f"the loop edges did not pull the end toward the truth: {end0} → {end1}")
+    _require(all(torch.isfinite(x).all() for x in (*pg_one[0], pg_one[1], *pg_four[0])), "non-finite poses")
+
+
+DIAG_FRAMES = 2 + 6  # the bootstrap and six tracked frames
+
+
+def run_diagnostics(card: str, frames):
+    """``System`` on the card with visualization on and saving_type "None",
+    the diagnostics going to an in-memory sink: every alignment level and
+    pose polish emits finite residuals and weights and a symmetric JᵀWJ;
+    neither PIL nor matplotlib is imported."""
+    import tempfile
+
+    from sdvo_tpu_torch.config import load_config
+    from sdvo_tpu_torch.optim.optimizer import set_diagnostics_sink
+    from sdvo_tpu_torch.pipeline.system import FrameResult, System
+
+    before = {m for m in ("PIL", "matplotlib") if m in sys.modules}
+    got = []
+    with tempfile.TemporaryDirectory() as out:
+        cfg = load_config(overrides={
+            "initialization": {"disparity_threshold": 3, "threshold_gradient_magnitude": 20},
+            "visualization": {"enable_visualization": True, "saving_type": "None"},
+            "file_paths": {"output_dir": out},
+        })
+        system = System(cfg)  # the card by default
+        _require(system.device.type == "cuda", f"System chose {system.device}, not the card")
+        set_diagnostics_sink(lambda *a: got.append(a))
+        try:
+            t0 = time.perf_counter()
+            results = [system.add_image(frames[i].astype(np.float32), float(i)) for i in range(DIAG_FRAMES)]
+            seconds = time.perf_counter() - t0
+        finally:
+            set_diagnostics_sink(None)
+    _require(FrameResult.FAILED not in results, f"diagnostics run: {[r.name for r in results]}")
+    tracked = DIAG_FRAMES - 2
+    tags = [c[0] for c in got]
+    n_align, n_pose = tags.count("image_alignment"), tags.count("pose_refine")
+    worst = 0.0
+    for tag, r, w, vis, H in got:
+        _require(np.isfinite(r).all() and np.isfinite(w).all() and np.isfinite(H).all(),
+                 f"{tag}: non-finite diagnostics")
+        _require(H.shape == (6, 6) and vis.dtype == bool and vis.any(), f"{tag}: H {H.shape}, visible {vis.sum()}")
+        asym = float(np.abs(H - H.T).max() / max(np.abs(H).max(), 1e-30))
+        worst = max(worst, asym)
+        _require(asym < SYM_TOL, f"{tag}: JᵀWJ not symmetric ({asym})")
+    print(f"diagnostics ({card}): System with visualization on over {DIAG_FRAMES} frames in {seconds:.2f} s: "
+          f"{n_align} image_alignment and {n_pose} pose_refine emissions, all finite, JᵀWJ symmetric "
+          f"to {worst:.2e} of its largest entry; PIL and matplotlib not imported", flush=True)
+    _require(n_align == system.num_levels * tracked, f"{n_align} alignment emissions for {tracked} frames")
+    _require(n_pose == tracked, f"{n_pose} pose-polish emissions for {tracked} frames")
+    _require({m for m in ("PIL", "matplotlib") if m in sys.modules} == before,
+             "the diagnostics phase imported PIL or matplotlib")
+
+
 def main() -> int:
     import torch
 
@@ -697,6 +1079,8 @@ def main() -> int:
     _require(same, "two runs of the main path gave different trajectories")
     launches_multi, multi_steps = run_multi_seq(card, seqs, T_true, main_ds, main_fps, main_fps_again)
     run_isolation(seqs)
+    run_shard_axis(card)
+    run_diagnostics(card, frames)
     _require(not failures, "; ".join(failures))
 
     kernels = []

@@ -16,6 +16,12 @@ as the reference's does.
 
 K1 is a float32 kernel, as the Pallas kernel is: a float64 caller's tables
 are cast at its boundary and the pose comes back in the caller's dtype.
+
+With ``settings.visualize`` each level's residuals, robust weights,
+visibility and JᵀWJ are evaluated at the pose K1 returned, by the plain
+functions in the caller's dtype, and handed to the optimizer's diagnostics
+sink under ``settings.viz_tag``: one call a level, as the reference's
+per-level ``optimize_lm`` makes. With it off nothing is added.
 """
 
 from __future__ import annotations
@@ -26,8 +32,8 @@ import torch
 
 from sdvo_tpu_torch.geometry.se3 import SE3
 from sdvo_tpu_torch.ops.lm_align import lm_align_level
-from sdvo_tpu_torch.ops.window_sampler import sample_windows_grad, window_gather
-from sdvo_tpu_torch.optim.optimizer import LMSettings
+from sdvo_tpu_torch.ops.window_sampler import sample_windows, sample_windows_grad, window_gather
+from sdvo_tpu_torch.optim.optimizer import LMSettings, _dispatch_diagnostics, _weights_for
 
 
 class AlignFeatures(NamedTuple):
@@ -67,6 +73,21 @@ class SparseImageAlign:
             org_c.to(f32), visible, fx * scale, fy * scale, cx * scale, cy * scale,
             patch=self.patch_size, max_iters=self.level_iterations(level),
             min_rel_decrease=self.settings.min_rel_decrease)
+
+    def _emit_diagnostics(self, T: SE3, win_cur, patches, J, feats: AlignFeatures, org_c, visible,
+                          fx, fy, cx, cy, level: int):
+        """The level's post-solve diagnostics at K1's pose ``T`` (the
+        reference's ``residual_fn`` and Optimizer::visualize)."""
+        p_cur = T.apply(feats.points_ref)
+        vals, ok_s = sample_windows(win_cur, self._project_level(T, feats, fx, fy, cx, cy, level) - org_c,
+                                    self.patch_size)
+        vis = visible & ok_s & (p_cur[..., 2] > 1e-6)
+        r = torch.where(vis[:, None], vals - patches, torch.zeros_like(vals)).reshape(-1)
+        vis = vis[:, None].expand(vals.shape).reshape(-1)
+        w = _weights_for(self.settings.estimator, r, vis, self.settings.mad)
+        Jf = J.reshape(-1, 6)
+        H = Jf.T @ (Jf * torch.where(vis, w, torch.zeros_like(w))[:, None])
+        _dispatch_diagnostics(self.settings.viz_tag, r, w, vis, H)
 
     def _jac_rows(self, feats: AlignFeatures, fx: float, fy: float, level: int):
         scale = 1.0 / (1 << level)
@@ -120,6 +141,9 @@ class SparseImageAlign:
             win_cur, org_c, ok_oc = window_gather(cur_pyramid[level], uv0, self.window)
             T, rmse, _ = self._run_level(T, win_cur, t_patches[li], t_J[li], feats, org_c,
                                          t_vis[li] & ok_oc, fx, fy, cx, cy, level)
+            if self.settings.visualize:
+                self._emit_diagnostics(T, win_cur, t_patches[li], t_J[li], feats, org_c,
+                                       t_vis[li] & ok_oc, fx, fy, cx, cy, level)
         return T, rmse
 
     def align(self, T_init: SE3, host_pyramid: Sequence[torch.Tensor],
@@ -161,4 +185,6 @@ class SparseImageAlign:
             J = torch.where(visible[:, None, None], J, torch.zeros_like(J))
             T, rmse, _ = self._run_level(T, win_cur, patches, J, feats, org_c, visible,
                                          fx, fy, cx, cy, level)
+            if self.settings.visualize:
+                self._emit_diagnostics(T, win_cur, patches, J, feats, org_c, visible, fx, fy, cx, cy, level)
         return T, rmse, torch.zeros((), dtype=torch.int32, device=dev)

@@ -79,6 +79,31 @@ def _inv3x3(H: torch.Tensor) -> torch.Tensor:
     return torch.where(sing[..., None, None], torch.zeros_like(inv), inv)
 
 
+def _project_residual(T: SE3, pts: torch.Tensor, uv: torch.Tensor, fx, fy, cx, cy):
+    """r = pi(T p) − uv (pixels) for per-observation poses ``T`` (M,).
+    Returns (r (M, 2), z (M,), p_cam (M, 3))."""
+    p_cam = torch.einsum("mij,mj->mi", T.rotation, pts) + T.translation
+    z = p_cam[:, 2]
+    z_safe = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    r = torch.stack([fx * p_cam[:, 0] / z_safe + cx, fy * p_cam[:, 1] / z_safe + cy], -1) - uv
+    return r, z, p_cam
+
+
+def _jacobians(T: SE3, p_cam: torch.Tensor, fx, fy):
+    """Jc (M, 2, 6) for the camera-frame perturbation exp(xi)·p_cam (the
+    update composes exp(−dx) on the left of T) and Jp (M, 2, 3) for the
+    world point."""
+    z = p_cam[:, 2]
+    iz = 1.0 / torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    iz2 = iz * iz
+    zero = torch.zeros_like(iz)
+    Jpix = torch.stack([torch.stack([fx * iz, zero, -fx * p_cam[:, 0] * iz2], -1),
+                        torch.stack([zero, fy * iz, -fy * p_cam[:, 1] * iz2], -1)], -2)  # (M, 2, 3)
+    eye3 = torch.eye(3, dtype=p_cam.dtype, device=p_cam.device)
+    dpdxi = torch.cat([eye3.expand(p_cam.shape[0], 3, 3), -se3.hat(p_cam)], -1)  # (M, 3, 6)
+    return Jpix @ dpdxi, Jpix @ T.rotation
+
+
 def _huber_w(r: torch.Tensor, delta: float) -> torch.Tensor:
     n = torch.linalg.norm(r, dim=-1)
     return torch.where(n <= delta, torch.ones_like(n), delta / torch.clamp(n, min=1e-12))
@@ -94,7 +119,6 @@ def local_ba(poses: SE3, points: torch.Tensor, obs: BAObservations, fixed_cam: t
     point's position."""
     K = poses.translation.shape[0]
     P = points.shape[0]
-    M = obs.cam_idx.shape[0]
     dtype = points.dtype
     dev = points.device
     cam = obs.cam_idx.to(torch.int64)
@@ -103,24 +127,13 @@ def local_ba(poses: SE3, points: torch.Tensor, obs: BAObservations, fixed_cam: t
     eye6 = torch.eye(6, dtype=dtype, device=dev)
 
     def residuals(R_all, t_all, pts_all):
-        R = R_all[cam]
-        p_cam = torch.einsum("mij,mj->mi", R, pts_all[pid]) + t_all[cam]
-        z = p_cam[:, 2]
-        z_safe = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
-        r = torch.stack([fx * p_cam[:, 0] / z_safe + cx, fy * p_cam[:, 1] / z_safe + cy], -1) - obs.uv
+        T = SE3(R_all[cam], t_all[cam])
+        r, z, p_cam = _project_residual(T, pts_all[pid], obs.uv, fx, fy, cx, cy)
         ok = obs.valid & (z > 1e-6) & ~fixed_pt[pid]
-        return torch.where(ok[:, None], r, torch.zeros_like(r)), ok, p_cam, R, z_safe
+        return torch.where(ok[:, None], r, torch.zeros_like(r)), ok, p_cam, T
 
     def chi2_of(r, w, ok):
         return torch.where(ok, w * (r * r).sum(-1), torch.zeros_like(w)).sum()
-
-    def jac_point(p_cam, R, z_safe):
-        iz = 1.0 / z_safe
-        iz2 = iz * iz
-        zero = torch.zeros_like(iz)
-        Jpix = torch.stack([torch.stack([fx * iz, zero, -fx * p_cam[:, 0] * iz2], -1),
-                            torch.stack([zero, fy * iz, -fy * p_cam[:, 1] * iz2], -1)], -2)  # (M, 2, 3)
-        return Jpix, Jpix @ R
 
     def chi2_per_point(r, w, ok):
         return torch.zeros((P,), dtype=dtype, device=dev).index_add(
@@ -131,21 +144,21 @@ def local_ba(poses: SE3, points: torch.Tensor, obs: BAObservations, fixed_cam: t
     for _ in range(settings.structure_presolve):
         # one Gauss-Newton step per point with the poses held, kept where the
         # point's own chi² went down
-        r, ok, p_cam, R, z_safe = residuals(R_c, t_c, pts)
+        r, ok, p_cam, T = residuals(R_c, t_c, pts)
         okf = ok.to(dtype)
         w = _huber_w(r, settings.huber_delta) * okf
-        Jp = jac_point(p_cam, R, z_safe)[1] * okf[:, None, None]
+        Jp = _jacobians(T, p_cam, fx, fy)[1] * okf[:, None, None]
         JpW = Jp * w[:, None, None]
         Hpp = torch.zeros((P, 3, 3), dtype=dtype, device=dev).index_add(
             0, pid, torch.einsum("mri,mrj->mij", JpW, Jp))
         gp = torch.zeros((P, 3), dtype=dtype, device=dev).index_add(0, pid, torch.einsum("mri,mr->mi", JpW, r))
         dp = (_inv3x3(Hpp + 1e-4 * eye3) @ gp[..., None])[..., 0]
         pts_new = pts - torch.where(frozen_pt[:, None], torch.zeros_like(dp), dp)
-        r_n, ok_n, _, _, _ = residuals(R_c, t_c, pts_new)
+        r_n, ok_n, _, _ = residuals(R_c, t_c, pts_new)
         w_n = _huber_w(r_n, settings.huber_delta) * ok_n.to(dtype)
         keep = chi2_per_point(r_n, w_n, ok_n) < chi2_per_point(r, w, ok)
         pts = torch.where(keep[:, None], pts_new, pts)
-    r0, ok0, _, _, _ = residuals(R_c, t_c, pts)
+    r0, ok0, _, _ = residuals(R_c, t_c, pts)
     chi = chi2_of(r0, _huber_w(r0, settings.huber_delta), ok0)
     lam = torch.tensor(settings.init_lambda, dtype=dtype, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
@@ -153,12 +166,11 @@ def local_ba(poses: SE3, points: torch.Tensor, obs: BAObservations, fixed_cam: t
     free6 = torch.repeat_interleave(free_c, 6)
     for _ in range(settings.iterations):
         active = ~done
-        r, ok, p_cam, R, z_safe = residuals(R_c, t_c, pts)
+        r, ok, p_cam, T = residuals(R_c, t_c, pts)
         okf = ok.to(dtype)
         w = _huber_w(r, settings.huber_delta) * okf
-        Jpix, Jp = jac_point(p_cam, R, z_safe)
-        dpdxi = torch.cat([eye3.expand(M, 3, 3), -se3.hat(p_cam)], -1)  # (M, 3, 6)
-        Jc = Jpix @ dpdxi * (free_c[cam] * okf)[:, None, None]
+        Jc, Jp = _jacobians(T, p_cam, fx, fy)
+        Jc = Jc * (free_c[cam] * okf)[:, None, None]
         free_p = okf if const_pt is None else okf * (~const_pt)[pid].to(dtype)
         Jp = Jp * free_p[:, None, None]
         JcW = Jc * w[:, None, None]
@@ -198,7 +210,7 @@ def local_ba(poses: SE3, points: torch.Tensor, obs: BAObservations, fixed_cam: t
         R_new = delta.rotation @ R_c
         t_new = torch.einsum("kij,kj->ki", delta.rotation, t_c) + delta.translation
         pts_new = pts - dp
-        r_n, ok_n, _, _, _ = residuals(R_new, t_new, pts_new)
+        r_n, ok_n, _, _ = residuals(R_new, t_new, pts_new)
         chi_n = chi2_of(r_n, _huber_w(r_n, settings.huber_delta) * ok_n.to(dtype), ok_n)
         better = (chi_n < chi) & active
         R_c = torch.where(better, R_new, R_c)
@@ -209,7 +221,7 @@ def local_ba(poses: SE3, points: torch.Tensor, obs: BAObservations, fixed_cam: t
             rel = (chi - chi_n) / torch.clamp(chi, min=torch.finfo(dtype).tiny)
             done = done | (better & (rel < settings.min_rel_decrease))
         chi = torch.where(better, chi_n, chi)
-    r_f, ok_f, _, _, _ = residuals(R_c, t_c, pts)
+    r_f, ok_f, _, _ = residuals(R_c, t_c, pts)
     chi2_obs = torch.where(ok_f, (r_f * r_f).sum(-1), torch.zeros_like(r_f[:, 0]))
     return SE3(R_c, t_c), pts, chi2_obs, chi
 

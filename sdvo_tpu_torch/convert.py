@@ -10,6 +10,11 @@ the same nested NamedTuples holding numpy arrays. Both take a stacked
 ``VOState`` of the multi-sequence path (every leaf with a leading sequence
 axis, ``parallel.multi_seq.stack_states``) as they take one sequence's.
 
+``from_numpy`` does the same for the other trees the packages share: an
+``SE3`` batch, ``PoseGraphEdges`` (either stacked over edge shards or not),
+the sharded bundle-adjustment problem of ``shard_observations`` (a tuple of
+arrays), or any nest of them.
+
 ``arena_to_numpy`` reads a ``MapArena`` of either package (they name their
 arrays alike) into a dict of copies under the keys a checkpoint uses;
 ``arena_from_numpy`` builds the port's ``MapArena`` from such a dict. The
@@ -27,23 +32,31 @@ from sdvo_tpu_torch.device import resolve_device
 from sdvo_tpu_torch.geometry.se3 import SE3
 from sdvo_tpu_torch.mapping.arena import ARENA_KEYS, MapArena
 from sdvo_tpu_torch.mapping.device_map import DeviceMap
+from sdvo_tpu_torch.parallel.pose_graph import PoseGraphEdges
 from sdvo_tpu_torch.pipeline.device_system import DeviceFilters, TrackRef, VOState
 
 _TYPES = {cls.__name__: cls for cls in (VOState, DeviceMap, DeviceFilters, FilterBank, TrackRef,
-                                        SE3, AlignFeatures)}
+                                        SE3, AlignFeatures, PoseGraphEdges)}
 
 
-def vo_state_from_numpy(tree, device=None) -> VOState:
-    """JAX ``VOState`` (numpy leaves) → the port's ``VOState`` on ``device``
-    (the CUDA card by default, raising where there is none; ``device="cpu"``
-    asks for the CPU)."""
+def from_numpy(tree, device=None):
+    """A tree of the JAX package with numpy leaves (``jax.device_get`` of
+    it) → the port's tree on ``device`` (the CUDA card by default, raising
+    where there is none; ``device="cpu"`` asks for the CPU), NamedTuples
+    matched by class and field name, every dtype kept."""
     device = resolve_device(device)
     if hasattr(tree, "_fields"):
         cls = _TYPES[type(tree).__name__]
-        return cls(*[vo_state_from_numpy(getattr(tree, f), device) for f in cls._fields])
+        return cls(*[from_numpy(getattr(tree, f), device) for f in cls._fields])
     if isinstance(tree, (tuple, list)):
-        return tuple(vo_state_from_numpy(x, device) for x in tree)
+        return tuple(from_numpy(x, device) for x in tree)
     return torch.from_numpy(np.array(tree)).to(device)
+
+
+def vo_state_from_numpy(tree, device=None) -> VOState:
+    """JAX ``VOState`` (numpy leaves) → the port's ``VOState`` on ``device``:
+    ``from_numpy`` of it."""
+    return from_numpy(tree, device)
 
 
 def to_numpy(tree):

@@ -1,6 +1,5 @@
 """Trajectory evaluation — copy of ``umeyama_alignment`` and ``ate_rmse`` from
-``sdvo_tpu.dataio.evaluate`` (numpy), plus ``write_kitti_poses`` from
-``sdvo_tpu.dataio.poses``."""
+``sdvo_tpu.dataio.evaluate`` (numpy)."""
 
 from __future__ import annotations
 
@@ -34,14 +33,3 @@ def ate_rmse(est_centers: np.ndarray, gt_centers: np.ndarray, with_scale: bool =
     aligned = (s * (est_centers @ R.T)) + t
     return float(np.sqrt(np.mean(np.sum((aligned - gt_centers) ** 2, axis=-1))))
 
-
-def write_kitti_poses(path: str, poses_wc):
-    """poses_wc: list of 4x4 world→camera poses (None → 'Failed' line).
-    Writes camera→world 3×4 rows (the KITTI ground-truth convention)."""
-    with open(path, "w") as f:
-        for T in poses_wc:
-            if T is None:
-                f.write("Failed\n")
-                continue
-            row = np.linalg.inv(T)[:3, :4].reshape(-1)
-            f.write(" ".join(f"{v:.9e}" for v in row) + "\n")

@@ -15,9 +15,13 @@ block); the caller supplies the retraction ``update_fn(params, dx)``.
 
 The D ≤ 8 solve is the reference's unrolled Cholesky with its relative ridge
 and one strong-ridge retry: those ridges are part of the numbers the solve
-returns, so no library factorisation stands in for it. The diagnostics sink
-of the reference (``LMSettings.visualize``) belongs to ``viz/``, which is not
-ported: asking for it raises.
+returns, so no library factorisation stands in for it.
+
+``LMSettings.visualize`` emits the post-solve diagnostics (residuals,
+weights, visibility and JᵀWJ at the final iterate, as numpy arrays: a host
+read, taken only then) to the sink installed with ``set_diagnostics_sink``,
+e.g. ``viz.diagnostics.FileDiagnosticsSink``: the reference's
+Optimizer::visualize.
 """
 
 from __future__ import annotations
@@ -28,6 +32,10 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from sdvo_tpu_torch.geometry.robust import masked_mad, masked_mad_hist
+
+# the sink of the post-solve diagnostics, fn(tag, residuals, weights,
+# visible, H) on numpy arrays, or None (set_diagnostics_sink)
+_DIAGNOSTICS_SINK = None
 
 
 class LevenbergMethod(enum.Enum):
@@ -59,8 +67,20 @@ class LMSettings(NamedTuple):
     mad: str = "exact"  # "exact": sort-based MAD; "hist": histogram-CDF MAD
     min_rel_decrease: float = 0.0  # 0 = run to max_iterations
     freeze_sigma: bool = False  # robust scale once, from the initial residuals
-    visualize: bool = False  # the diagnostics sink; not ported (raises)
+    visualize: bool = False  # emit post-solve diagnostics to the sink (set_diagnostics_sink)
     viz_tag: str = ""
+
+
+def set_diagnostics_sink(fn) -> None:
+    """Install fn(tag, residuals, weights, visible, H) — numpy arrays — or None."""
+    global _DIAGNOSTICS_SINK
+    _DIAGNOSTICS_SINK = fn
+
+
+def _dispatch_diagnostics(tag: str, r, w, vis, H) -> None:
+    """Hand one solve's diagnostics to the sink, as numpy arrays."""
+    if _DIAGNOSTICS_SINK is not None:
+        _DIAGNOSTICS_SINK(tag, *(x.detach().cpu().numpy() for x in (r, w, vis, H)))
 
 
 def tukey_weights(residuals: torch.Tensor, visible: torch.Tensor, mad: str = "exact",
@@ -185,9 +205,6 @@ def optimize_lm(params0: Any, residual_fn: Callable[[Any], Tuple[torch.Tensor, t
     ``jacobian_fn``: params → J (N, D); ``update_fn``: the retraction with
     its sign convention. Returns (params, rmse, status); a failed or aborted
     step leaves the last accepted iterate."""
-    if settings.visualize:
-        raise NotImplementedError("the optimizer's diagnostics sink belongs to viz/, which the "
-                                  "port does not have yet")
     method = settings.method if isinstance(settings.method, LevenbergMethod) \
         else LevenbergMethod(settings.method)
     use_marquardt = method == LevenbergMethod.MARQUARDT
@@ -292,6 +309,11 @@ def optimize_lm(params0: Any, residual_fn: Callable[[Any], Tuple[torch.Tensor, t
             break
 
     n_vis = torch.clamp(vis.to(dtype).sum(), min=1.0)
+    if settings.visualize:
+        # post-solve diagnostics at the final iterate
+        J_f = jacobian_fn(params)
+        H_f = J_f.T @ (J_f * torch.where(vis, w, torch.zeros_like(w))[:, None])
+        _dispatch_diagnostics(settings.viz_tag, r, w, vis, H_f)
     return params, torch.sqrt(chi / n_vis), status
 
 

@@ -12,6 +12,12 @@ PyTorch has no mesh: ``VOMesh`` holds the same (num_seq, num_shard) grid of
 A tree of tensors with a sequence axis is cut into contiguous groups, group g
 on the g-th ``seq`` device (column 0 of the grid); each group is processed by
 its own batched program on its device, with no communication between groups.
+
+``shard_devices`` (row 0 of the grid) stands in for ``shard_map`` over
+``P("shard")``: shard s of a landmark or edge set lives on its s-th device,
+and ``parallel.dist_ba`` / ``parallel.pose_graph`` sum the shards' partial
+systems over them. A device may appear more than once: four shards on one
+card (``devices=["cuda:0"] * 4``) run one after another in one process.
 """
 
 from __future__ import annotations
@@ -29,6 +35,12 @@ class VOMesh(NamedTuple):
     @property
     def seq_devices(self) -> List[torch.device]:
         return list(self.devices[:, 0])
+
+
+def shard_devices(mesh: VOMesh) -> List[torch.device]:
+    """The devices of the ``shard`` axis: row 0 of the grid (the other rows
+    replicate it, as ``shard_map`` over ``P("shard")`` does)."""
+    return list(mesh.devices[0, :])
 
 
 def make_vo_mesh(num_seq: Optional[int] = None, num_shard: int = 1,

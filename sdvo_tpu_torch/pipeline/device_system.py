@@ -31,7 +31,7 @@ import torch
 from sdvo_tpu_torch.align.image_alignment import AlignFeatures, SparseImageAlign
 from sdvo_tpu_torch.ba.bundle_adjustment import BAObservations, BASettings, local_ba
 from sdvo_tpu_torch.config import Config
-from sdvo_tpu_torch.dataio.evaluate import write_kitti_poses
+from sdvo_tpu_torch.dataio.poses import write_kitti_poses
 from sdvo_tpu_torch.depth.filter import FilterBank, init_filters, update_filters
 from sdvo_tpu_torch.device import deterministic_on, resolve_device
 from sdvo_tpu_torch.features.detection import detect_gradient_by_value

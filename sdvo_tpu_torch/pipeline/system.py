@@ -28,14 +28,19 @@ later draws come from a ``torch.Generator`` seeded with ``seed``.
 Checkpoints are the ``.npz`` of the reference's ``save_checkpoint`` (same
 keys, shapes and dtypes): either package loads the other's.
 
-The per-stage overlays and the optimizer's diagnostics sink belong to
-``viz/``, which is not ported: a configuration that enables visualization is
-refused.
+``config.visualization`` turns on the per-stage overlays (``_viz_dump``:
+"File" writes PNGs under ``<output_dir>/images``, "LiveShow" shows them in a
+matplotlib window and falls back to "File" on a headless display) and the
+optimizer diagnostics: a ``viz.diagnostics.FileDiagnosticsSink`` under
+``<output_dir>/diagnostics`` takes each alignment level's and each pose
+polish's residuals, weights and JᵀWJ (tags ``image_alignment`` and
+``pose_refine``). Off by default; then nothing is written or read back.
 """
 
 from __future__ import annotations
 
 import enum
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -51,7 +56,7 @@ from sdvo_tpu_torch.ba.bundle_adjustment import (
     pose_covariance,
 )
 from sdvo_tpu_torch.config import Config
-from sdvo_tpu_torch.dataio.evaluate import write_kitti_poses
+from sdvo_tpu_torch.dataio.poses import write_kitti_poses
 from sdvo_tpu_torch.depth.filter import FilterBank, init_filters, update_filters
 from sdvo_tpu_torch.device import deterministic_on, resolve_device
 from sdvo_tpu_torch.features.detection import FeatureSelection
@@ -62,6 +67,7 @@ from sdvo_tpu_torch.image.pyramid import ImagePyramid, build_pyramid
 from sdvo_tpu_torch.mapping.arena import ARENA_KEYS, MapArena
 from sdvo_tpu_torch.mapping.device_map import PointType
 from sdvo_tpu_torch.mapping.reproject import reproject_map
+from sdvo_tpu_torch.optim.optimizer import LMSettings
 from sdvo_tpu_torch.pipeline.bootstrap import bootstrap_two_view
 from sdvo_tpu_torch.utils.logging import get_logger
 from sdvo_tpu_torch.utils.timing import Timers
@@ -113,9 +119,6 @@ class System:
         cfg_a = config.algorithm
         self.log = get_logger("System")
         self.timers = Timers()
-        if config.visualization.enable_visualization:
-            raise NotImplementedError("visualization (the per-stage overlays and the optimizer's "
-                                      "diagnostics) belongs to viz/, which the port does not have yet")
         self.dtype = torch.float32 if config.compute_dtype == "float32" else torch.float64
         self._np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
 
@@ -140,11 +143,20 @@ class System:
         self.arena.intrinsics = (camera.fx, camera.fy, camera.cx, camera.cy)
         self.selector = FeatureSelection(self.width, self.height, cfg_a.cell_pixel_size)
         # the class defaults: 12 iterations a level, no taper, frozen ESM
+        align_settings = SparseImageAlign.DEFAULT_SETTINGS
+        self.pose_settings = None  # optimize_pose's defaults
+        if config.visualization.enable_visualization:
+            # the optimizer diagnostics of every alignment level and pose polish
+            from sdvo_tpu_torch.viz.diagnostics import FileDiagnosticsSink
+
+            FileDiagnosticsSink(os.path.join(config.file_paths.output_dir, "diagnostics")).install()
+            align_settings = align_settings._replace(visualize=True, viz_tag="image_alignment")
+            self.pose_settings = LMSettings(max_iterations=15, visualize=True, viz_tag="pose_refine")
         self.aligner = SparseImageAlign(
             patch_size=cfg_a.patch_size_image_alignment,
             min_level=cfg_a.min_level_image_pyramid,
             max_level=cfg_a.max_level_image_pyramid,
-            settings=SparseImageAlign.DEFAULT_SETTINGS,
+            settings=align_settings,
         )
         self.num_levels = cfg_a.max_level_image_pyramid + 1
 
@@ -215,6 +227,43 @@ class System:
         return map_coordinates(
             np.asarray(image, np.float32), [map_v, map_u], order=1, mode="nearest"
         )
+
+    def _viz_dump(self, frame: _FrameRecord, stage: str, uv: np.ndarray, color="orange"):
+        """Per-stage overlay, gated by config.visualization: saving_type
+        "File" writes a PNG, "LiveShow" shows it in a matplotlib window (the
+        cv::imshow analog) and falls back to "File" on a headless display."""
+        cfg_v = self.config.visualization
+        if not cfg_v.enable_visualization or cfg_v.saving_type not in ("File", "LiveShow"):
+            return
+
+        from sdvo_tpu_torch.viz.overlays import draw_feature_points, get_color_image
+
+        img = frame.pyramid.base_image.cpu().numpy().astype(np.uint8)
+        over = draw_feature_points(get_color_image(img), np.asarray(uv), color=color)
+        if cfg_v.saving_type == "LiveShow":
+            try:
+                import matplotlib.pyplot as plt
+
+                if not hasattr(self, "_live_fig"):
+                    plt.ion()
+                    self._live_fig, self._live_ax = plt.subplots(num="sdvo-tpu")
+                    self._live_im = self._live_ax.imshow(over)
+                else:
+                    self._live_im.set_data(over)
+                self._live_ax.set_title(f"frame {frame.frame_id}: {stage}")
+                self._live_fig.canvas.draw_idle()
+                plt.pause(0.001)
+            except Exception as e:  # headless display
+                self.log.warning("LiveShow unavailable (%s); falling back to File", e)
+                self.config = self.config.replace(
+                    visualization=cfg_v.__class__(enable_visualization=True, saving_type="File"))
+                self._viz_dump(frame, stage, uv, color)
+            return
+        out_dir = os.path.join(self.config.file_paths.output_dir, "images")
+        os.makedirs(out_dir, exist_ok=True)
+        from PIL import Image
+
+        Image.fromarray(over).save(os.path.join(out_dir, f"{frame.frame_id:06d}_{stage}.png"))
 
     def write_poses(self, path: str):
         write_kitti_poses(path, self.trajectory)
@@ -337,6 +386,7 @@ class System:
         frame.pose_wc = np.eye(4)
         frame.feat_uv = feats.uv.astype(np.float64)
         frame.feat_point = -np.ones(len(feats.uv), np.int64)
+        self._viz_dump(frame, "detect", feats.uv, color="green")
         frame.kf_slot = self.arena.add_keyframe(frame.frame_id, frame.pose_wc, frame.pyramid)
         self.ref_frame = frame
         self.last_kf = frame
@@ -431,6 +481,7 @@ class System:
 
         frame.feat_uv = rep.uv
         frame.feat_point = rep.pt_slot
+        self._viz_dump(frame, "reproject", rep.uv)
 
         # 6. scene depth stats in the current frame
         pts_cam = self._points_in_frame(frame)
@@ -598,7 +649,8 @@ class System:
         pts_w = self._tensor(self.arena.pt_pos[rep.pt_slot])
         bearings = self.camera.backproject(self._tensor(rep.uv))
         valid = torch.ones((len(rep.pt_slot),), dtype=torch.bool, device=self.device)
-        T_out, _, _ = optimize_pose(self._se3(frame.pose_wc), pts_w, bearings, valid)
+        T_out, _, _ = optimize_pose(self._se3(frame.pose_wc), pts_w, bearings, valid,
+                                    settings=self.pose_settings)
         frame.pose_cov = pose_covariance(T_out, pts_w, bearings, valid).cpu().numpy().astype(np.float64)
         frame.pose_wc = _pose44(T_out)
 

@@ -142,16 +142,22 @@ def test_state_round_trip(runs):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port (the CLI and the multi-sequence package
-    ``parallel`` included) imports where neither JAX nor the JAX package can
-    be imported."""
+    """Every module of the port (the CLI, both axes of ``parallel``, ``viz``,
+    ``utils.io`` and ``dataio.poses`` included) imports where neither JAX nor
+    the JAX package can be imported, and importing them all leaves
+    matplotlib and PIL unimported."""
     code = ("import sys; sys.modules['jax'] = None; sys.modules['sdvo_tpu'] = None; "
             "import importlib, pkgutil, sdvo_tpu_torch; "
             "names = [m.name for m in pkgutil.walk_packages(sdvo_tpu_torch.__path__, 'sdvo_tpu_torch.')]; "
             "[importlib.import_module(n) for n in names]; "
             "assert 'sdvo_tpu_torch.main' in names and 'sdvo_tpu_torch.pipeline.system' in names "
             "and 'sdvo_tpu_torch.parallel.multi_seq' in names and len(names) >= 40, names; "
-            "import sdvo_tpu_torch.parallel; print('ok')")
+            "need = {'sdvo_tpu_torch.parallel.dist_ba', 'sdvo_tpu_torch.parallel.pose_graph', "
+            "'sdvo_tpu_torch.parallel.distributed', 'sdvo_tpu_torch.viz.overlays', "
+            "'sdvo_tpu_torch.viz.plots', 'sdvo_tpu_torch.viz.diagnostics', 'sdvo_tpu_torch.utils.io', "
+            "'sdvo_tpu_torch.dataio.poses'}; assert need <= set(names), need - set(names); "
+            "import sdvo_tpu_torch.parallel; "
+            "assert 'matplotlib' not in sys.modules and 'PIL' not in sys.modules; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=__import__("os").path.dirname(__import__("os").path.dirname(__file__)))
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

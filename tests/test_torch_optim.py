@@ -175,8 +175,30 @@ def test_optimize_lm_status_codes_match_jax():
 
 
 def test_optimize_lm_refuses_the_diagnostics_sink():
-    with pytest.raises(NotImplementedError):
-        topt.optimize_lm(_t(np.zeros(3)), None, None, None, topt.LMSettings(visualize=True))
+    """Named for the time the port refused ``LMSettings.visualize``; it now
+    emits the post-solve diagnostics as the JAX package does: each sink gets
+    the tag and the final residuals, weights, visibility and JᵀWJ, equal to
+    the JAX package's within 1e-9 (float64)."""
+    import jax
+
+    x, y, vis, p0 = _curve_problem(np.float64, seed=4)
+    jf = _curve_fns(jnp, jnp.asarray(x), jnp.asarray(y), jnp.asarray(vis), jnp.where, jnp.stack, jnp.exp)
+    tf = _curve_fns(torch, _t(x), _t(y), _t(vis), torch.where, torch.stack, torch.exp)
+    got = {}
+    jopt.set_diagnostics_sink(lambda *a: got.setdefault("jax", a))
+    topt.set_diagnostics_sink(lambda *a: got.setdefault("port", a))
+    try:
+        kw = dict(max_iterations=12, visualize=True, viz_tag="curve")
+        jopt.optimize_lm(jnp.asarray(p0), *jf, jopt.LMSettings(**kw))
+        jax.effects_barrier()
+        topt.optimize_lm(_t(p0), *tf, topt.LMSettings(**kw))
+    finally:
+        jopt.set_diagnostics_sink(None)
+        topt.set_diagnostics_sink(None)
+    assert got["port"][0] == got["jax"][0] == "curve"
+    for a, b in zip(got["port"][1:], got["jax"][1:]):
+        assert isinstance(a, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_allclose(a, b, atol=1e-9)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

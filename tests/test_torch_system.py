@@ -202,10 +202,28 @@ def test_checkpoints_cross_load(host_runs, frames):
     assert np.linalg.norm(ct - cj, axis=-1).max() < 2e-3
 
 
-def test_system_refuses_visualization():
-    cfg = load_config(overrides={**OVERRIDES, "visualization": {"enable_visualization": True}})
-    with pytest.raises(NotImplementedError):
-        System(cfg, camera=PinholeCamera.create(**CAM), device="cpu")
+def test_system_refuses_visualization(tmp_path):
+    """Named for the time the port refused a configuration with
+    visualization; it now wires it as the JAX ``System`` does: a
+    ``FileDiagnosticsSink`` under ``<output_dir>/diagnostics`` and the
+    alignment's and the pose polish's settings with ``visualize`` on and
+    their tags. The default configuration wires none of it."""
+    from sdvo_tpu_torch.optim import optimizer as topt
+    from sdvo_tpu_torch.viz.diagnostics import FileDiagnosticsSink
+
+    cfg = load_config(overrides={**OVERRIDES, "visualization": {"enable_visualization": True},
+                                 "file_paths": {"output_dir": str(tmp_path)}})
+    try:
+        tsys = System(cfg, camera=PinholeCamera.create(**CAM), device="cpu")
+        assert isinstance(topt._DIAGNOSTICS_SINK, FileDiagnosticsSink)
+        assert topt._DIAGNOSTICS_SINK.out_dir == os.path.join(str(tmp_path), "diagnostics")
+    finally:
+        topt.set_diagnostics_sink(None)
+    assert (tsys.aligner.settings.visualize, tsys.aligner.settings.viz_tag) == (True, "image_alignment")
+    assert (tsys.pose_settings.visualize, tsys.pose_settings.viz_tag) == (True, "pose_refine")
+    off = System(load_config(overrides=OVERRIDES), camera=PinholeCamera.create(**CAM), device="cpu")
+    assert not off.aligner.settings.visualize and off.pose_settings is None
+    assert topt._DIAGNOSTICS_SINK is None
 
 
 def test_system_defaults_to_the_card():
