@@ -71,13 +71,24 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    visualization on (saving_type "None") and an in-memory sink: every
    alignment level and pose polish emits finite residuals and weights and
    a symmetric JᵀWJ, without PIL or matplotlib.
-13. Prints the kernels' JSON line, then last the device JSON line.
+13. The streaming path (``run_streaming``): ``StreamingTracker`` on the card
+   at the bench's geometry and capacities (KITTI intrinsics, 1241×376, four
+   levels, 256 features, 150 matches, 512 filters), three chunks of 8
+   frames of a plane at 10 m against one reference keyframe: every frame
+   within 0.06 m and 0.01 rad of the truth on the card and, through the
+   plain versions, on the CPU; the carry is the last frame's outputs; two
+   card runs give the same bits; K1 four launches a frame, K2 and K4 one, K3
+   none. Prints frames/s, K2's converged share, the converged filters' depth
+   error, the card-CPU gap and the host syncs of one chunk.
+14. Prints the kernels' JSON line (each row with its launches on the main,
+   host and streaming paths), then last the device JSON line.
 
 Imports nothing of JAX. Exits non-zero on any failure, without a result;
 alone, without the package beside it, it fails at its first import of
 ``sdvo_tpu_torch`` (exit code 1).
 """
 
+import collections
 import contextlib
 import hashlib
 import json
@@ -1037,6 +1048,214 @@ def run_diagnostics(card: str, frames):
              "the diagnostics phase imported PIL or matplotlib")
 
 
+STREAM_F = 8  # frames a chunk of the streaming path
+STREAM_CHUNKS = 3  # against the one reference keyframe; the first warms up
+STREAM_LEVELS = 4
+STREAM_DTAU = (0.08, 0.01, 0.05, 0.001, 0.004, 0.0008)  # tests/test_streaming.py's motion a frame
+STREAM_STEP = 0.5  # its scale here: frame 24 still sees 80 % of the features
+STREAM_MIN_SEEN = 0.80
+STREAM_GATES = (0.06, 0.01)  # m and rad a frame, the JAX test's gates
+
+
+def streaming_inputs(scene, cfg, device):
+    """The tracker's fixed inputs on ``device``: the reference keyframe's
+    pyramid, the alignment features (N = ``max_features_per_frame``, the
+    first ``max_reprojection_matches`` of them matched) and a bank of
+    ``max_filters`` filters seeded at the keyframe with 7×7 patches."""
+    import torch
+
+    from sdvo_tpu_torch.align.image_alignment import AlignFeatures
+    from sdvo_tpu_torch.depth.filter import init_filters
+    from sdvo_tpu_torch.image.interp import extract_patches
+    from sdvo_tpu_torch.image.pyramid import build_pyramid
+
+    alg = cfg.algorithm
+    N, M = alg.max_features_per_frame, alg.max_reprojection_matches
+    pyr = build_pyramid(torch.from_numpy(scene.ref).to(device), STREAM_LEVELS)
+    feats = AlignFeatures(torch.from_numpy(scene.uv).to(device), torch.zeros(N, dtype=torch.int32, device=device),
+                          torch.from_numpy(scene.points).to(device), torch.ones(N, dtype=torch.bool, device=device))
+    fuv = torch.from_numpy(scene.filter_uv).to(device)
+    patches, ok = extract_patches(pyr.base_image, fuv, 7)
+    bank = init_filters(fuv, torch.from_numpy(scene.filter_bearing).to(device), patches, 0, 8.0, 2.0, 0, ok)
+    return dict(host_pyr=[im[None] for im in pyr.images], host_grad0=pyr.base_gradient, feats=feats,
+                uv_match=feats.uv_host[:M], match_valid=torch.ones(M, dtype=torch.bool, device=device),
+                filters=bank)
+
+
+def track_stream(tracker, scene, inputs, cam, count_syncs_in=None):
+    """The chunks of ``scene`` in order, each from the last one's carry.
+    Returns (each chunk's outputs, the last carry, each chunk's seconds,
+    each chunk's launches, the syncs of chunk ``count_syncs_in`` as
+    (file, line, source) or None)."""
+    import linecache
+    import warnings
+
+    import torch
+
+    from sdvo_tpu_torch.geometry.se3 import SE3
+
+    dev = tracker.device
+    root = os.path.dirname(os.path.abspath(__file__))
+    T0 = SE3.identity(device=dev)
+    T_cur, T_prev, bank = T0, T0, inputs["filters"]
+    outs, seconds, launches, syncs = [], [], [], None
+    for c in range(STREAM_CHUNKS):
+        images = scene.frames[c * STREAM_F:(c + 1) * STREAM_F]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        with contextlib.ExitStack() as stack:
+            counts = stack.enter_context(LaunchCount())
+            if c == count_syncs_in:
+                caught = stack.enter_context(warnings.catch_warnings(record=True))
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            carry, out = tracker.track_chunk(images, inputs["host_pyr"], inputs["host_grad0"], inputs["feats"],
+                                             inputs["uv_match"], inputs["match_valid"], T_cur, T_prev, bank,
+                                             cam["fx"], cam["fy"], cam["cx"], cam["cy"], 0)
+            if c == count_syncs_in:
+                torch.cuda.set_sync_debug_mode("default")
+                # the warnings name the line of the op that synchronized;
+                # turning the mode off reports itself from torch's own code
+                syncs = [(w.filename, w.lineno, linecache.getline(w.filename, w.lineno).strip())
+                         for w in caught if "synchroniz" in str(w.message) and w.filename.startswith(root)]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        launches.append(counts)
+        outs.append(out)
+        T_cur, T_prev, bank = carry
+    return outs, carry, seconds, launches, syncs
+
+
+def _stream_digest(outs, carry) -> str:
+    import torch
+
+    leaves = [x for o in outs for x in o] + [carry.T_cur_ref.rotation, carry.T_cur_ref.translation,
+                                             carry.T_prev_ref.rotation, carry.T_prev_ref.translation, *carry.filters]
+    h = hashlib.sha256()
+    for x in leaves:
+        h.update(x.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _projections(points, rotations, translations, cam):
+    p = np.einsum("fij,nj->fni", rotations.astype(np.float64), points.astype(np.float64)) + translations[:, None]
+    return np.stack([cam["fx"] * p[..., 0] / p[..., 2] + cam["cx"], cam["fy"] * p[..., 1] / p[..., 2] + cam["cy"]], -1)
+
+
+def _stream_gates(name, outs, carry, scene, failures):
+    """Every frame within ``STREAM_GATES`` of the truth; the carry is the
+    last frame's outputs. Returns (rotations, translations) as numpy."""
+    import torch
+
+    R = np.concatenate([o.rotations.cpu().numpy() for o in outs])
+    t = np.concatenate([o.translations.cpu().numpy() for o in outs])
+    worst_t, worst_r = 0.0, 0.0
+    for i, T in enumerate(scene.T_true):
+        worst_t = max(worst_t, float(np.linalg.norm(t[i] - T[:3, 3])))
+        worst_r = max(worst_r, float(np.arccos(np.clip((np.trace(R[i].T.astype(np.float64) @ T[:3, :3]) - 1) / 2,
+                                                       -1, 1))))
+    if not (worst_t < STREAM_GATES[0] and worst_r < STREAM_GATES[1]):
+        failures.append(f"streaming path on {name}: worst frame {worst_t:.4f} m, {worst_r:.5f} rad off the truth")
+    last = outs[-1]
+    if not (torch.equal(carry.T_cur_ref.rotation, last.rotations[-1])
+            and torch.equal(carry.T_cur_ref.translation, last.translations[-1])
+            and torch.equal(carry.T_prev_ref.translation, last.translations[-2])):
+        failures.append(f"streaming path on {name}: the final carry is not the last frame's outputs")
+    return R, t, worst_t, worst_r
+
+
+def run_streaming(card: str, failures):
+    """``StreamingTracker`` on the card at the bench's geometry and
+    capacities: a plane at 10 m (KITTI intrinsics, 1241×376, four levels),
+    N = 256 features, M = 150 matches, C = 512 filters seeded at the
+    reference keyframe, three chunks of ``STREAM_F`` frames against that one
+    keyframe, each from the last one's carry. Gates: every frame within
+    ``STREAM_GATES`` of the truth, on the card and on the CPU (the plain
+    versions of the kernels); the carry is the last frame's outputs; two card
+    runs give the same bits; K1 four launches a frame, K2 and K4 one, K3
+    none, no plain version on a CUDA tensor. Prints frames/s, the launches
+    of a chunk, K2's converged share, the converged filters' depth error, the
+    card-CPU gap and the host syncs of one chunk with the line that made
+    each. Returns the launches of the first run."""
+    import torch
+
+    from sdvo_tpu_torch.align.image_alignment import SparseImageAlign
+    from sdvo_tpu_torch.dataio.synthetic import KITTI_CAMERA, render_plane_track
+    from sdvo_tpu_torch.pipeline.streaming import StreamingTracker
+
+    t_phase = time.perf_counter()
+    cfg = bench_config()
+    alg = cfg.algorithm
+    n_frames = STREAM_CHUNKS * STREAM_F
+    dtau = np.asarray(STREAM_DTAU) * STREAM_STEP
+    scene = render_plane_track(np.random.default_rng(0), KITTI_CAMERA, dtau, n_frames, alg.max_features_per_frame,
+                               alg.max_filters, margin=24.0, tex_size=4096, blur=13)
+    cam = KITTI_CAMERA
+    seen = _projections(scene.points, scene.T_true[-1][None, :3, :3], scene.T_true[-1][None, :3, 3], cam)[0]
+    seen_share = float(np.mean((seen[:, 0] >= 0) & (seen[:, 0] < cam["width"]) & (seen[:, 1] >= 0)
+                               & (seen[:, 1] < cam["height"])))
+    _require(seen_share >= STREAM_MIN_SEEN, f"frame {n_frames} sees {seen_share:.2f} of the features")
+
+    def tracker(device):
+        aligner = SparseImageAlign(patch_size=alg.patch_size_image_alignment, min_level=0,
+                                   max_level=STREAM_LEVELS - 1)
+        return StreamingTracker(aligner, levels=STREAM_LEVELS, fa_patch=alg.patch_size_feature_alignment,
+                                device=device)
+
+    card_tracker = tracker(None)  # the card by default
+    _require(card_tracker.device.type == "cuda", f"StreamingTracker chose {card_tracker.device}, not the card")
+    inputs = streaming_inputs(scene, cfg, card_tracker.device)
+    outs, carry, seconds, counts, _ = track_stream(card_tracker, scene, inputs, cam)
+    R, t, worst_t, worst_r = _stream_gates("the card", outs, carry, scene, failures)
+    per_chunk = [c.launches for c in counts]
+    for c in counts:
+        if (c.launches["lm_align_level"] != 4 * STREAM_F or c.launches["fa_align_batch"] != STREAM_F
+                or c.launches["depth_scores"] != STREAM_F or c.launches["pose_refine"] != 0):
+            failures.append(f"streaming path: launches of a chunk {c.launches}, not 4/1/0/1 a frame")
+        if any(c.plain_on_cuda.values()):
+            failures.append(f"streaming path: plain versions ran on CUDA tensors: {c.plain_on_cuda}")
+    launches = {k: sum(p[k] for p in per_chunk) for k in per_chunk[0]}
+
+    outs2, carry2, _, _, syncs = track_stream(card_tracker, scene, inputs, cam, count_syncs_in=1)
+    d1, d2 = _stream_digest(outs, carry), _stream_digest(outs2, carry2)
+    if d1 != d2:
+        failures.append(f"streaming path: two card runs gave different bits ({d1}, {d2})")
+
+    t_cpu = time.perf_counter()
+    cpu_tracker = tracker("cpu")
+    outs_c, carry_c, _, _, _ = track_stream(cpu_tracker, scene, streaming_inputs(scene, cfg, cpu_tracker.device), cam)
+    cpu_s = time.perf_counter() - t_cpu
+    Rc, tc, worst_tc, worst_rc = _stream_gates("the CPU", outs_c, carry_c, scene, failures)
+    gap = float(np.abs(_projections(scene.points, R, t, cam) - _projections(scene.points, Rc, tc, cam)).max())
+
+    fa_conv = float(torch.cat([o.fa_converged for o in outs]).float().mean())
+    df_any = torch.stack([o.df_converged.any(0) for o in outs]).any(0).cpu().numpy()
+    depth = 1.0 / carry.filters.mu.double().cpu().numpy()
+    err = np.abs(depth - scene.filter_depth) / scene.filter_depth
+    med_err = float(np.median(err[df_any])) if df_any.any() else float("nan")
+    fps = STREAM_F / float(np.median(seconds[1:]))
+    print(f"streaming path ({card}): StreamingTracker at {cam['width']}x{cam['height']}, {STREAM_LEVELS} levels, N "
+          f"{alg.max_features_per_frame}, M {alg.max_reprojection_matches}, C {alg.max_filters}; "
+          f"{STREAM_CHUNKS} chunks of {STREAM_F} frames against one keyframe, the motion a frame "
+          f"{STREAM_STEP} x tests/test_streaming.py's dtau (frame {n_frames} sees {100 * seen_share:.1f} % of "
+          f"the features); worst frame {worst_t:.5f} m / {worst_r:.6f} rad on the card, {worst_tc:.5f} m / "
+          f"{worst_rc:.6f} rad on the CPU; card vs CPU {gap:.5f} px in projected features (not a gate); "
+          f"digests {d1} {d2}", flush=True)
+    print(f"streaming path frames/s {fps:.2f} ({card}; median of {STREAM_CHUNKS - 1} chunks of {STREAM_F} "
+          f"frames after one warm-up chunk; chunk seconds {[round(s, 4) for s in seconds]}); launches a chunk "
+          f"{per_chunk[0]}; K2 converged {100 * fa_conv:.1f} % of the matches; {int(df_any.sum())} filters "
+          f"converged, median depth error {100 * med_err:.2f} % against the 10 m plane; the CPU run "
+          f"{cpu_s:.1f} s", flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    where = collections.Counter(f"{os.path.relpath(f, root)}:{line}: {src}" for f, line, src in syncs)
+    print(f"streaming path host syncs in one chunk of {STREAM_F} frames: {len(syncs)}"
+          + "".join(f"\n  {n} x {k}" for k, n in where.most_common()), flush=True)
+    print(f"streaming path: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1081,6 +1300,7 @@ def main() -> int:
     run_isolation(seqs)
     run_shard_axis(card)
     run_diagnostics(card, frames)
+    launches_stream = run_streaming(card, failures)
     _require(not failures, "; ".join(failures))
 
     kernels = []
@@ -1100,7 +1320,8 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": None,
                         "device_ms": r["device_ms"], "device_ms_cold": r["device_ms_cold"],
                         "launches_per_frame": n / n_path, "on_path": r["on_path"],
-                        "launches_host_path": launches_host[base] if r["on_path"] else 0})
+                        "launches_host_path": launches_host[base] if r["on_path"] else 0,
+                        "launches_streaming": launches_stream[base] if r["on_path"] else 0})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,7 @@ axis, ``parallel.multi_seq.stack_states``) as they take one sequence's.
 
 ``from_numpy`` does the same for the other trees the packages share: an
 ``SE3`` batch, ``PoseGraphEdges`` (either stacked over edge shards or not),
+the streaming tracker's ``StreamCarry`` and ``StreamOutputs``,
 the sharded bundle-adjustment problem of ``shard_observations`` (a tuple of
 arrays), or any nest of them.
 
@@ -34,9 +35,10 @@ from sdvo_tpu_torch.mapping.arena import ARENA_KEYS, MapArena
 from sdvo_tpu_torch.mapping.device_map import DeviceMap
 from sdvo_tpu_torch.parallel.pose_graph import PoseGraphEdges
 from sdvo_tpu_torch.pipeline.device_system import DeviceFilters, TrackRef, VOState
+from sdvo_tpu_torch.pipeline.streaming import StreamCarry, StreamOutputs
 
 _TYPES = {cls.__name__: cls for cls in (VOState, DeviceMap, DeviceFilters, FilterBank, TrackRef,
-                                        SE3, AlignFeatures, PoseGraphEdges)}
+                                        SE3, AlignFeatures, PoseGraphEdges, StreamCarry, StreamOutputs)}
 
 
 def from_numpy(tree, device=None):

@@ -1,7 +1,9 @@
-"""Trajectory evaluation — copy of ``umeyama_alignment`` and ``ate_rmse`` from
-``sdvo_tpu.dataio.evaluate`` (numpy)."""
+"""Trajectory evaluation — copy of ``umeyama_alignment``, ``ate_rmse`` and
+``rpe`` from ``sdvo_tpu.dataio.evaluate`` (numpy)."""
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 
@@ -33,3 +35,16 @@ def ate_rmse(est_centers: np.ndarray, gt_centers: np.ndarray, with_scale: bool =
     aligned = (s * (est_centers @ R.T)) + t
     return float(np.sqrt(np.mean(np.sum((aligned - gt_centers) ** 2, axis=-1))))
 
+
+
+def rpe(est_poses: np.ndarray, gt_poses: np.ndarray, delta: int = 1) -> Tuple[float, float]:
+    """Relative pose error over ``delta``-frame intervals of (N, 4, 4)
+    camera→world poses: (translation RMSE, rotation RMSE in degrees)."""
+    terrs, rerrs = [], []
+    for i in range(len(est_poses) - delta):
+        de = np.linalg.inv(est_poses[i]) @ est_poses[i + delta]
+        dg = np.linalg.inv(gt_poses[i]) @ gt_poses[i + delta]
+        e = np.linalg.inv(dg) @ de
+        terrs.append(np.linalg.norm(e[:3, 3]))
+        rerrs.append(np.degrees(np.arccos(np.clip((np.trace(e[:3, :3]) - 1) / 2, -1, 1))))
+    return float(np.sqrt(np.mean(np.square(terrs)))), float(np.sqrt(np.mean(np.square(rerrs))))

@@ -150,3 +150,50 @@ def render_bench_sequences(seeds, n_frames: int):
         frames, T_true = render_bench_sequence(np.random.default_rng(seed), n_frames)
         out.append(([f.astype(np.float32) for f in frames], T_true))
     return out
+
+
+def render_plane_track(rng, cam: dict, dtau, n_frames: int, n_features: int, n_filters: int,
+                       plane_z: float = 10.0, margin: float = 20.0, tex_size: int = 1024, blur: int = 9,
+                       supersample: int = 2):
+    """The streaming tracker's scene: a textured plane at ``plane_z`` seen
+    from the reference keyframe (the world frame) and from the world→camera
+    poses exp(i·dtau), i = 1 … ``n_frames``; ``n_features`` alignment
+    features and ``n_filters`` depth-filter seeds at random pixels at least
+    ``margin`` px inside the reference image. Returns a namespace: ``ref``
+    (H, W) and ``frames`` (F, H, W) float32, ``T_true`` (4×4 each), ``uv``
+    (N, 2) float32 and ``points`` (N, 3) float32 on the plane in the
+    reference frame, ``filter_uv`` (C, 2) and ``filter_bearing`` (C, 3) unit
+    float32, ``filter_depth`` (C,) float64 along each bearing to the plane."""
+    from types import SimpleNamespace
+
+    from scipy.linalg import expm
+
+    class _Pose:
+        def __init__(self, T):
+            self.rotation = T[:3, :3]
+            self.translation = T[:3, 3]
+
+    def se3_exp(tau):
+        xi = np.zeros((4, 4))
+        xi[:3, :3] = [[0, -tau[5], tau[4]], [tau[5], 0, -tau[3]], [-tau[4], tau[3], 0]]
+        xi[:3, 3] = tau[:3]
+        return expm(xi)
+
+    c = SimpleNamespace(**cam)
+    W, H = c.width, c.height
+    tex = smooth_texture(rng, size=tex_size, blur=blur)
+    ref = render_plane(tex, c, _Pose(np.eye(4)), plane_z, supersample=supersample).astype(np.float32)
+    T_true = [se3_exp(np.asarray(dtau, np.float64) * i) for i in range(1, n_frames + 1)]
+    frames = np.stack([render_plane(tex, c, _Pose(T), plane_z, supersample=supersample)
+                       for T in T_true]).astype(np.float32)
+
+    def rays(uv):
+        return np.stack([(uv[:, 0] - c.cx) / c.fx, (uv[:, 1] - c.cy) / c.fy, np.ones(len(uv))], -1)
+
+    uv = rng.uniform([margin, margin], [W - margin, H - margin], (n_features, 2))
+    fuv = rng.uniform([margin, margin], [W - margin, H - margin], (n_filters, 2))
+    fb = rays(fuv)
+    fb /= np.linalg.norm(fb, axis=-1, keepdims=True)
+    return SimpleNamespace(ref=ref, frames=frames, T_true=T_true, uv=uv.astype(np.float32),
+                           points=(rays(uv) * plane_z).astype(np.float32), filter_uv=fuv.astype(np.float32),
+                           filter_bearing=fb.astype(np.float32), filter_depth=plane_z / fb[:, 2])

@@ -81,6 +81,14 @@ def warp_ref_patches(ref_patches, A_inv, patch_size: int):
     return torch.sum(rows * selx, dim=-1)
 
 
+def zssd_score(ref_patch: torch.Tensor, cur_patch: torch.Tensor) -> torch.Tensor:
+    """Zero-mean SAD over the last axis (the reference's ``computeScore``:
+    despite the ZSSD name it sums |·|)."""
+    r = ref_patch - ref_patch.mean(dim=-1, keepdim=True)
+    c = cur_patch - cur_patch.mean(dim=-1, keepdim=True)
+    return torch.sum(torch.abs(r - c), dim=-1)
+
+
 def epipolar_search(T_cur_ref: SE3, cur: torch.Tensor, ref_patches, bearings_ref, mu, inv_min,
                     inv_max, valid, fx, fy, cx, cy, patch_size: int = 7, num_steps: int = 16
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

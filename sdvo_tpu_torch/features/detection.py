@@ -1,11 +1,13 @@
 """Feature detection — port of ``sdvo_tpu.features.detection``:
 ``detect_gradient_by_value`` (device max-per-cell detector of the keyframe
-step) and ``FeatureSelection.detect_with_ssc`` (threshold → SSC ANMS → grid
-bucketing on the host, used by the bootstrap)."""
+step), ``gradient_magnitude_with_ssc`` (threshold → SSC ANMS → grid
+bucketing on the host, used by the bootstrap through
+``FeatureSelection.detect_with_ssc``), ``gradient_orientation`` and
+``FeatureType``."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -13,9 +15,61 @@ import torch
 from sdvo_tpu_torch.features import ssc as ssc_mod
 
 
+class FeatureType:
+    """The reference's feature types."""
+
+    CORNER = 0
+    EDGE = 1
+    DEFAULT = 2
+
+
 class DetectedFeatures(NamedTuple):
     uv: np.ndarray  # (K, 2) float32 pixel positions
     response: np.ndarray  # (K,)
+    angle: np.ndarray = None  # (K,) gradient orientation (radians)
+    ftype: np.ndarray = None  # (K,) int FeatureType
+
+
+def gradient_orientation(image: np.ndarray, uv: np.ndarray) -> np.ndarray:
+    """atan2(dy, dx) of central differences at the integer feature pixels
+    (clipped one pixel inside the image)."""
+    if len(uv) == 0:
+        return np.zeros((0,), np.float32)
+    img = np.asarray(image, np.float32)
+    H, W = img.shape
+    x = np.clip(np.asarray(uv)[:, 0].astype(int), 1, W - 2)
+    y = np.clip(np.asarray(uv)[:, 1].astype(int), 1, H - 2)
+    gx = 0.5 * (img[y, x + 1] - img[y, x - 1])
+    gy = 0.5 * (img[y + 1, x] - img[y - 1, x])
+    return np.arctan2(gy, gx).astype(np.float32)
+
+
+def gradient_magnitude_with_ssc(gradient_image: np.ndarray, detection_threshold: int, num_candidates: int,
+                                cell_size: int, occupancy: Optional[np.ndarray] = None, tolerance: float = 0.1,
+                                use_bucketing: bool = True) -> Tuple[DetectedFeatures, np.ndarray]:
+    """The keyframe detector: pixels above the threshold, strongest first,
+    thinned by SSC to about ``num_candidates``, then one a free grid cell of
+    ``occupancy`` (grid_rows, grid_cols) uint8, whose occupied cells are
+    skipped. Detections are CORNERs with the orientation of the magnitude
+    surface. Returns (features, occupancy)."""
+    grad = np.asarray(gradient_image)
+    rows, cols = grad.shape
+    grid_cols = int(np.ceil(cols / cell_size))
+    grid_rows = int(np.ceil(rows / cell_size))
+    if occupancy is None:
+        occupancy = np.zeros((grid_rows, grid_cols), dtype=np.uint8)
+    xs, ys, resp = ssc_mod.threshold_extract(grad, detection_threshold)
+    if xs.shape[0] == 0:
+        empty = np.empty(0, np.float32)
+        return DetectedFeatures(np.empty((0, 2), np.float32), empty, empty, np.empty(0, np.int32)), occupancy
+    sel = ssc_mod.ssc_select(xs, ys, num_candidates, tolerance, cols, rows)
+    xs, ys, resp = xs[sel], ys[sel], resp[sel]
+    if use_bucketing:
+        occupancy, keep = ssc_mod.bucket_points(xs, ys, cell_size, grid_cols, grid_rows, occupancy)
+        xs, ys, resp = xs[keep], ys[keep], resp[keep]
+    uv = np.stack([xs, ys], axis=-1)
+    return DetectedFeatures(uv, resp, gradient_orientation(grad, uv),
+                            np.full(len(uv), FeatureType.CORNER, np.int32)), occupancy
 
 
 def detect_gradient_by_value(gradient_image: torch.Tensor, threshold: float, cell_size: int,
@@ -40,9 +94,11 @@ def detect_gradient_by_value(gradient_image: torch.Tensor, threshold: float, cel
 
 
 class FeatureSelection:
-    """Owns the occupancy grid of the SSC keyframe detector."""
+    """Owns the occupancy grid of the detectors."""
 
     def __init__(self, width: int, height: int, cell_size: int):
+        self.width = int(width)
+        self.height = int(height)
         self.cell_size = int(cell_size)
         self.grid_cols = int(np.ceil(width / cell_size))
         self.grid_rows = int(np.ceil(height / cell_size))
@@ -62,13 +118,11 @@ class FeatureSelection:
 
     def detect_with_ssc(self, gradient_image: np.ndarray, threshold: int, num_candidates: int,
                         tolerance: float = 0.1) -> DetectedFeatures:
-        grad = np.asarray(gradient_image)
-        rows, cols = grad.shape
-        xs, ys, resp = ssc_mod.threshold_extract(grad, threshold)
-        if xs.shape[0] == 0:
-            return DetectedFeatures(np.empty((0, 2), np.float32), np.empty(0, np.float32))
-        sel = ssc_mod.ssc_select(xs, ys, num_candidates, tolerance, cols, rows)
-        xs, ys, resp = xs[sel], ys[sel], resp[sel]
-        self.occupancy, keep = ssc_mod.bucket_points(xs, ys, self.cell_size, self.grid_cols,
-                                                     self.grid_rows, self.occupancy)
-        return DetectedFeatures(np.stack([xs[keep], ys[keep]], axis=-1), resp[keep])
+        feats, self.occupancy = gradient_magnitude_with_ssc(gradient_image, threshold, num_candidates,
+                                                            self.cell_size, self.occupancy, tolerance)
+        return feats
+
+    def detect_by_value(self, gradient_image: torch.Tensor, threshold: float):
+        """``detect_gradient_by_value`` with the occupied cells skipped."""
+        occ = torch.as_tensor(self.occupancy.astype(bool), device=gradient_image.device)
+        return detect_gradient_by_value(gradient_image, threshold, self.cell_size, occ)

@@ -53,6 +53,11 @@ def _load_lib() -> Optional[ctypes.CDLL]:
     return lib
 
 
+def have_native() -> bool:
+    """Whether the ctypes loader found (or built) ``native/libsdvo_host.so``."""
+    return _load_lib() is not None
+
+
 def _f32(a) -> np.ndarray:
     return np.ascontiguousarray(a, dtype=np.float32)
 

@@ -1,9 +1,11 @@
 """Pinhole camera — port of ``sdvo_tpu.geometry.camera.PinholeCamera``.
 
-The point operations are those of the undistorted model: a camera with
-distortion (``dist``, OpenCV order k1, k2, p1, p2, k3) is handled at ingest,
-where ``System.preprocess_image`` remaps every image through
-``build_undistort_maps`` so that the pipeline runs on the pinhole model.
+The pipeline's point operations are those of the undistorted model: a
+camera with distortion (``dist``, OpenCV order k1, k2, p1, p2, k3) is
+handled at ingest, where ``System.preprocess_image`` remaps every image
+through ``build_undistort_maps`` so that the pipeline runs on the pinhole
+model. ``project``/``backproject`` take ``with_distortion`` for callers that
+want the distorted model.
 Intrinsics are Python floats holding the values of the compute dtype
 (``create`` rounds them), so a float32 tensor op sees exactly the float32
 intrinsics the JAX reference uses and a float64 op sees the same value
@@ -16,6 +18,8 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from sdvo_tpu_torch.geometry.se3 import hat
 
 
 class PinholeCamera(NamedTuple):
@@ -38,25 +42,58 @@ class PinholeCamera(NamedTuple):
     def has_distortion(self) -> bool:
         return any(abs(v) > 1e-12 for v in self.dist)
 
-    def distort_normalized(self, xy: np.ndarray) -> np.ndarray:
-        """Apply the distortion on the normalized plane (..., 2) -> (..., 2)."""
+    def K(self, dtype=torch.float32, device=None) -> torch.Tensor:
+        """(3, 3) intrinsic matrix."""
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+                            dtype=dtype, device=device)
+
+    def invK(self, dtype=torch.float32, device=None) -> torch.Tensor:
+        """(3, 3) inverse of ``K``, written out as the reference does."""
+        K = self.K(dtype, device)
+        fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+        z, o = torch.zeros_like(fx), torch.ones_like(fx)
+        return torch.stack([torch.stack([1.0 / fx, z, -cx / fx]), torch.stack([z, 1.0 / fy, -cy / fy]),
+                            torch.stack([z, z, o])])
+
+    def distort_normalized(self, xy):
+        """Apply the distortion on the normalized plane (..., 2) -> (..., 2);
+        numpy arrays or tensors."""
         k1, k2, p1, p2, k3 = self.dist
         x, y = xy[..., 0], xy[..., 1]
         r2 = x * x + y * y
         radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
         xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
         yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
-        return np.stack([xd, yd], axis=-1)
+        return _stack([xd, yd])
 
-    def project(self, pts_cam: torch.Tensor) -> torch.Tensor:
+    def undistort_normalized(self, xy, iters: int = 8):
+        """Invert the distortion by fixed-point iteration (as
+        cv::undistortPoints); numpy arrays or tensors."""
+        k1, k2, p1, p2, k3 = self.dist
+        out = xy
+        for _ in range(iters):
+            x, y = out[..., 0], out[..., 1]
+            r2 = x * x + y * y
+            radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+            dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+            dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+            out = _stack([(xy[..., 0] - dx) / radial, (xy[..., 1] - dy) / radial])
+        return out
+
+    def project(self, pts_cam: torch.Tensor, with_distortion: bool = False) -> torch.Tensor:
         """Camera-frame 3D points (..., 3) -> pixel coords (..., 2)."""
         xy = pts_cam[..., :2] / pts_cam[..., 2:3]
+        if with_distortion:
+            xy = self.distort_normalized(xy)
         return torch.stack([self.fx * xy[..., 0] + self.cx, self.fy * xy[..., 1] + self.cy], dim=-1)
 
-    def backproject(self, uv: torch.Tensor) -> torch.Tensor:
+    def backproject(self, uv: torch.Tensor, with_distortion: bool = False) -> torch.Tensor:
         """Pixels (..., 2) -> unit bearing vectors (..., 3)."""
         x = (uv[..., 0] - self.cx) / self.fx
         y = (uv[..., 1] - self.cy) / self.fy
+        if with_distortion:
+            xy = self.undistort_normalized(torch.stack([x, y], dim=-1))
+            x, y = xy[..., 0], xy[..., 1]
         b = torch.stack([x, y, torch.ones_like(x)], dim=-1)
         return b / torch.linalg.norm(b, dim=-1, keepdim=True)
 
@@ -65,6 +102,44 @@ class PinholeCamera(NamedTuple):
         x = (uv[..., 0] - self.cx) / self.fx
         y = (uv[..., 1] - self.cy) / self.fy
         return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+    def is_in_frame(self, uv: torch.Tensor, boundary: float = 0.0, level: int = 0) -> torch.Tensor:
+        """``uv`` (level-0 pixels) at least ``boundary`` px inside the image of
+        pyramid level ``level``, which is ``2**level`` smaller."""
+        scale = 1.0 / (2.0 ** level)
+        w, h = self.width * scale, self.height * scale
+        u, v = uv[..., 0] * scale, uv[..., 1] * scale
+        return (u >= boundary) & (v >= boundary) & (u < w - boundary) & (v < h - boundary)
+
+    def scaled(self, level: int) -> "PinholeCamera":
+        """The intrinsics at pyramid level ``level`` (coordinates / 2**level)."""
+        s = 1.0 / (2.0 ** level)
+        return PinholeCamera(self.fx * s, self.fy * s, self.cx * s, self.cy * s,
+                             self.width >> level, self.height >> level, self.dist)
+
+
+def _stack(parts):
+    return torch.stack(parts, dim=-1) if isinstance(parts[0], torch.Tensor) else np.stack(parts, axis=-1)
+
+
+def projection_jacobian(cam: PinholeCamera, pts_cam: torch.Tensor) -> torch.Tensor:
+    """d(uv)/d(p_cam) of the undistorted pinhole model: (..., 2, 3)."""
+    x, y, z = pts_cam[..., 0], pts_cam[..., 1], pts_cam[..., 2]
+    iz = 1.0 / z
+    iz2 = iz * iz
+    zeros = torch.zeros_like(x)
+    row_u = torch.stack([cam.fx * iz, zeros, -cam.fx * x * iz2], dim=-1)
+    row_v = torch.stack([zeros, cam.fy * iz, -cam.fy * y * iz2], dim=-1)
+    return torch.stack([row_u, row_v], dim=-2)
+
+
+def pose_projection_jacobian(cam: PinholeCamera, pts_cam: torch.Tensor) -> torch.Tensor:
+    """d(uv)/d(xi) for a right perturbation T·exp(xi) of the world→camera
+    pose at the camera-frame point: (..., 2, 6), xi = [upsilon, omega]; the
+    projection Jacobian times [I | -p^]."""
+    eye = torch.eye(3, dtype=pts_cam.dtype, device=pts_cam.device).expand(pts_cam.shape[:-1] + (3, 3))
+    dp = torch.cat([eye, -hat(pts_cam)], dim=-1)  # (..., 3, 6)
+    return torch.einsum("...ij,...jk->...ik", projection_jacobian(cam, pts_cam), dp)
 
 
 def build_undistort_maps(cam: PinholeCamera) -> Tuple[np.ndarray, np.ndarray]:
@@ -75,3 +150,12 @@ def build_undistort_maps(cam: PinholeCamera) -> Tuple[np.ndarray, np.ndarray]:
     xy = np.stack([(uu - cam.cx) / cam.fx, (vv - cam.cy) / cam.fy], axis=-1)
     xyd = cam.distort_normalized(xy)
     return cam.fx * xyd[..., 0] + cam.cx, cam.fy * xyd[..., 1] + cam.cy
+
+
+def undistort_image(image: np.ndarray, cam: PinholeCamera) -> np.ndarray:
+    """The image remapped through ``build_undistort_maps`` by bilinear
+    interpolation, nearest pixel at the border (numpy, on the host)."""
+    from scipy.ndimage import map_coordinates
+
+    map_u, map_v = build_undistort_maps(cam)
+    return map_coordinates(image.astype(np.float32), [map_v, map_u], order=1, mode="nearest")

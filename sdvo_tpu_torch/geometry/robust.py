@@ -1,7 +1,7 @@
 """Robust statistics — port of ``sdvo_tpu.geometry.robust``:
-``masked_median`` (KLT disparity gate), ``masked_mad`` and ``masked_mad_hist``
-(the robust scale of ``optim.optimizer``) and ``gaussian_pdf`` (the Vogiatzis
-update)."""
+``masked_median`` (KLT disparity gate), ``masked_mad``, ``masked_sigma`` and
+``masked_mad_hist`` (the robust scale of ``optim.optimizer``) and
+``gaussian_pdf`` (the Vogiatzis update)."""
 
 from __future__ import annotations
 
@@ -9,6 +9,8 @@ import math
 from typing import Optional
 
 import torch
+
+MAD_SCALE = 1.4826
 
 
 def masked_median(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -27,6 +29,11 @@ def masked_mad(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Te
     """Median absolute deviation of the valid entries."""
     med = masked_median(x, mask)
     return masked_median(torch.abs(x.reshape(-1) - med), mask)
+
+
+def masked_sigma(x: torch.Tensor, mask: Optional[torch.Tensor] = None, k: float = MAD_SCALE) -> torch.Tensor:
+    """sigma = k · MAD of the valid entries."""
+    return k * masked_mad(x, mask)
 
 
 def _hist_median(x, mask, lo, hi, bins: int) -> torch.Tensor:

@@ -41,6 +41,10 @@ class SE3(NamedTuple):
     translation: torch.Tensor  # (..., 3)
 
     @property
+    def batch_shape(self):
+        return self.translation.shape[:-1]
+
+    @property
     def dtype(self):
         return self.translation.dtype
 
@@ -49,6 +53,35 @@ class SE3(NamedTuple):
         R = torch.eye(3, dtype=dtype, device=device).expand(tuple(batch_shape) + (3, 3)).clone()
         t = torch.zeros(tuple(batch_shape) + (3,), dtype=dtype, device=device)
         return SE3(R, t)
+
+    @staticmethod
+    def from_matrix(T: torch.Tensor) -> "SE3":
+        """From (..., 4, 4) or (..., 3, 4) homogeneous matrices."""
+        return SE3(T[..., :3, :3], T[..., :3, 3])
+
+    def matrix3x4(self) -> torch.Tensor:
+        """(..., 3, 4) ``[R | t]``."""
+        return torch.cat([self.rotation, self.translation[..., None]], dim=-1)
+
+    def as_matrix(self) -> torch.Tensor:
+        """(..., 4, 4) homogeneous matrix."""
+        bottom = torch.zeros(self.batch_shape + (1, 4), dtype=self.dtype, device=self.translation.device)
+        bottom[..., 0, 3] = 1.0
+        return torch.cat([self.matrix3x4(), bottom], dim=-2)
+
+    def adjoint(self) -> torch.Tensor:
+        """(..., 6, 6) adjoint: Ad(T) [u, w] = [R u + t × R w, R w]."""
+        R = self.rotation
+        top = torch.cat([R, _mm(hat(self.translation), R)], dim=-1)
+        bot = torch.cat([torch.zeros_like(R), R], dim=-1)
+        return torch.cat([top, bot], dim=-2)
+
+    def normalize(self) -> "SE3":
+        """R re-orthonormalized through its SVD (the nearest rotation)."""
+        U, _, Vt = torch.linalg.svd(self.rotation)
+        det = torch.linalg.det(_mm(U, Vt))
+        D = torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1)
+        return SE3(_mm(U, D[..., :, None] * Vt), self.translation)
 
     def compose(self, other: "SE3") -> "SE3":
         """self ∘ other (apply ``other`` first)."""
@@ -167,3 +200,13 @@ def log(T: SE3) -> torch.Tensor:
     omega = so3_log(T.rotation)
     upsilon = _mv(_left_jacobian_inverse(omega), T.translation)
     return torch.cat([upsilon, omega], dim=-1)
+
+
+def relative(T_ref: SE3, T_cur: SE3) -> SE3:
+    """T_cur_ref = T_cur ∘ T_ref⁻¹, poses as world→camera maps."""
+    return T_cur.compose(T_ref.inverse())
+
+
+def camera_center(T_wc: SE3) -> torch.Tensor:
+    """The camera's position in the world for a world→camera pose: −Rᵀt."""
+    return -_mv(T_wc.rotation.transpose(-1, -2), T_wc.translation)

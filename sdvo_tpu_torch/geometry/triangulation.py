@@ -1,11 +1,31 @@
-"""Two-view depth, Sampson correction and distance — port of
-``sdvo_tpu.geometry.triangulation`` (the functions on the port's path)."""
+"""Triangulation, two-view depth, Sampson correction and distance, and the
+reprojection error — port of ``sdvo_tpu.geometry.triangulation``."""
 
 from __future__ import annotations
 
 import torch
 
 from sdvo_tpu_torch.geometry.se3 import SE3
+
+
+def triangulate_dlt_homogeneous(P_ref: torch.Tensor, P_cur: torch.Tensor, uv_ref: torch.Tensor,
+                                uv_cur: torch.Tensor) -> torch.Tensor:
+    """Homogeneous DLT from two 3×4 projection matrices, batched over the
+    leading dims of uv: the right singular vector of the smallest singular
+    value of the 4×4 system. Returns points (..., 3)."""
+    def row_pair(P, uv):
+        return uv[..., 0:1] * P[..., 2, :] - P[..., 0, :], uv[..., 1:2] * P[..., 2, :] - P[..., 1, :]
+
+    r0, r1 = row_pair(P_ref, uv_ref)
+    r2, r3 = row_pair(P_cur, uv_cur)
+    _, _, Vh = torch.linalg.svd(torch.stack([r0, r1, r2, r3], dim=-2))
+    X = Vh[..., 3, :]
+    return X[..., :3] / X[..., 3:4]
+
+
+def reprojection_error(T_wc: SE3, cam, pts_w: torch.Tensor, uv_obs: torch.Tensor) -> torch.Tensor:
+    """Pixel distance of each world point's projection from its observation."""
+    return torch.linalg.norm(cam.project(T_wc.apply(pts_w)) - uv_obs, dim=-1)
 
 
 def triangulate_two_view_depth(T_cur_ref: SE3, f_ref: torch.Tensor, f_cur: torch.Tensor) -> torch.Tensor:

@@ -18,12 +18,17 @@ def bilinear_sample(image: torch.Tensor, uv: torch.Tensor):
     y0 = y0f.to(torch.int64)
     valid = (x0 >= 0) & (y0 >= 0) & (x0 + 1 <= W - 1) & (y0 + 1 <= H - 1)
     base = torch.clamp(y0, 0, H - 2) * W + torch.clamp(x0, 0, W - 2)
-    flat = image.reshape(-1)
+    return blend(image.reshape(-1), base, W, wx, wy), valid
+
+
+def blend(flat: torch.Tensor, base: torch.Tensor, W: int, wx: torch.Tensor, wy: torch.Tensor):
+    """The bilinear blend of the pixels at flat indices ``base``, ``base+1``,
+    ``base+W`` and ``base+W+1`` of an image of width ``W`` with weights
+    ``(wx, wy)`` (broadcasting against ``base``)."""
     v00, v01 = flat[base], flat[base + 1]
     v10, v11 = flat[base + W], flat[base + W + 1]
-    out = v00 * ((1.0 - wx) * (1.0 - wy)) + v01 * (wx * (1.0 - wy)) \
+    return v00 * ((1.0 - wx) * (1.0 - wy)) + v01 * (wx * (1.0 - wy)) \
         + v10 * ((1.0 - wx) * wy) + v11 * (wx * wy)
-    return out, valid
 
 
 def patch_offsets(patch_size: int, dtype=torch.float32, device=None) -> torch.Tensor:

@@ -40,6 +40,16 @@ class ImagePyramid(NamedTuple):
     gradients: tuple
 
     @property
+    def num_levels(self) -> int:
+        return len(self.images)
+
+    def image_at(self, level: int) -> torch.Tensor:
+        return self.images[level]
+
+    def gradient_at(self, level: int) -> torch.Tensor:
+        return self.gradients[level]
+
+    @property
     def base_image(self) -> torch.Tensor:
         return self.images[0]
 

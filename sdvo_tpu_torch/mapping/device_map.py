@@ -56,6 +56,27 @@ class DeviceMap(NamedTuple):
     pt_succ: torch.Tensor  # (P,) int32
     pt_fail: torch.Tensor  # (P,) int32
 
+    @staticmethod
+    def empty(max_kf: int, max_feat: int, max_pts: int, patch_area: int, img_hw: Tuple[int, int] = (0, 0),
+              dtype=torch.float32, device=None) -> "DeviceMap":
+        """A map with every slot free: identity keyframe poses, frame ids and
+        feature points −1, points of type UNKNOWN."""
+        K, F, P = max_kf, max_feat, max_pts
+        f = dict(dtype=dtype, device=device)
+        i32 = dict(dtype=torch.int32, device=device)
+        no = dict(dtype=torch.bool, device=device)
+        return DeviceMap(
+            kf_R=torch.eye(3, **f).expand(K, 3, 3).clone(), kf_t=torch.zeros((K, 3), **f),
+            kf_valid=torch.zeros((K,), **no), kf_frame_id=torch.full((K,), -1, **i32),
+            kf_counter=torch.zeros((), **i32), kf_img0=torch.zeros((K,) + tuple(img_hw), **f),
+            feat_uv=torch.zeros((K, F, 2), **f), feat_point=torch.full((K, F), -1, **i32),
+            feat_valid=torch.zeros((K, F), **no), feat_patch=torch.zeros((K, F, patch_area), **f),
+            feat_gx=torch.zeros((K, F, patch_area), **f), feat_gy=torch.zeros((K, F, patch_area), **f),
+            feat_ok=torch.zeros((K, F), **no), pt_pos=torch.zeros((P, 3), **f),
+            pt_type=torch.full((P,), int(PointType.UNKNOWN), **i32), pt_valid=torch.zeros((P,), **no),
+            pt_succ=torch.zeros((P,), **i32), pt_fail=torch.zeros((P,), **i32),
+        )
+
     def kf_pose(self) -> SE3:
         return SE3(self.kf_R, self.kf_t)
 

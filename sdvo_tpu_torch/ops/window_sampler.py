@@ -1,6 +1,6 @@
 """Per-feature windows and separable bilinear patch sampling — port of
-``sdvo_tpu.ops.window_sampler`` (``window_gather``, ``sample_windows``,
-``sample_windows_grad``).
+``sdvo_tpu.ops.window_sampler`` (``extract_windows``, ``window_origins``,
+``window_gather``, ``sample_windows``, ``sample_windows_grad``).
 
 ``window_gather`` is a direct row gather from the zero-padded image. The JAX
 reference builds an overlapping two-block row layout first, which is how a
@@ -20,6 +20,26 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+def extract_windows(image: torch.Tensor, origins: torch.Tensor, win: int) -> torch.Tensor:
+    """(N, win, win) windows at integer ``origins`` (N, 2) as (x, y), each
+    origin clamped so that its window lies in the image."""
+    H, W = image.shape
+    ox = torch.clamp(origins[:, 0].to(torch.int64), 0, W - win)
+    oy = torch.clamp(origins[:, 1].to(torch.int64), 0, H - win)
+    r = torch.arange(win, device=image.device)
+    return image[(oy[:, None] + r)[:, :, None], (ox[:, None] + r)[:, None, :]]
+
+
+def window_origins(uv: torch.Tensor, win: int, width, height) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Integer window origins (N, 2) centred on ``uv``, and ok: the window
+    lies inside the image."""
+    half = win // 2
+    ox = torch.floor(uv[..., 0]).to(torch.int32) - half
+    oy = torch.floor(uv[..., 1]).to(torch.int32) - half
+    ok = (ox >= 0) & (oy >= 0) & (ox + win <= width) & (oy + win <= height)
+    return torch.stack([ox, oy], dim=-1), ok
 
 
 def window_gather(image: torch.Tensor, uv: torch.Tensor, win_h: int = 16,

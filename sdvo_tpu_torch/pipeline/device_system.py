@@ -119,6 +119,7 @@ class SuperstepConfig(NamedTuple):
     staleness: int
     convergence_factor: float
     grad_threshold: float
+    ba_presolve: int = 0  # structure-only passes of the windowed BA before its joint solve
 
 
 def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -455,7 +456,8 @@ class DeviceVO:
         poses_out, pts_out, chi2_obs, _ = local_ba(
             m.kf_pose(), m.pt_pos[sel_p].to(self.dtype), obs, fixed_cam, ~p_live,
             cam.fx, cam.fy, cam.cx, cam.cy,
-            settings=BASettings(iterations=cfg.ba_iterations, huber_delta=2.0, min_rel_decrease=1e-3))
+            settings=BASettings(iterations=cfg.ba_iterations, huber_delta=2.0, min_rel_decrease=1e-3,
+                                structure_presolve=cfg.ba_presolve))
         kf_R = torch.where(do_ba, _orthonormalize(poses_out.rotation), m.kf_R)
         kf_t = torch.where(do_ba, poses_out.translation, m.kf_t)
         pt_pos = m.pt_pos.index_copy(0, sel_p, torch.where((p_live & do_ba)[:, None], pts_out, m.pt_pos[sel_p]))
@@ -520,7 +522,8 @@ class DeviceSystem:
 
     def __init__(self, config: Config, camera: Optional[PinholeCamera] = None, seed: int = 0,
                  supersteps_per_chunk: int = 8, max_promote: int = 64, ba_points: int = 1024,
-                 ba_iterations: int = 2, device=None, ransac_uniforms: Optional[np.ndarray] = None):
+                 ba_iterations: int = 2, device=None, ransac_uniforms: Optional[np.ndarray] = None,
+                 ba_presolve: Optional[int] = None):
         self.config = config
         self.device = resolve_device(device)
         cfg_a = config.algorithm
@@ -541,6 +544,7 @@ class DeviceSystem:
             staleness=cfg_a.filter_staleness_keyframes,
             convergence_factor=cfg_a.filter_convergence_sigma_factor,
             grad_threshold=float(config.initialization.threshold_gradient_magnitude),
+            ba_presolve=cfg_a.ba_structure_presolve if ba_presolve is None else ba_presolve,
         )
         self.vo = DeviceVO(self.camera, self.scfg)
         self.supersteps_per_chunk = supersteps_per_chunk

@@ -323,3 +323,72 @@ def test_multi_sequence_members_are_isolated_on_the_card():
     in01, in10 = chip_smoke.joint_by_slot([x, y], 2, 2)
     for i in range(2):
         assert chip_smoke.same_bits(in01[i], in10[i]), i
+
+
+@pytest.mark.gpu
+def test_streaming_chunk_matches_plain_versions_on_the_card(monkeypatch):
+    """One ``StreamingTracker`` chunk on the card (the scene of
+    ``tests/test_torch_streaming.py``: 160×120, five frames, 64 features, 32
+    matches, 16 filters, three levels) through the kernels, against the same
+    chunk through the plain versions on the same card (the tracker's callees
+    given the plain functions): the poses put every feature within 0.01 px of
+    each other on all frames but one and within 0.15 px on every frame
+    (the CPU test's tolerances: K1's rounding can take the LM another way
+    at a stall test); K1 launched once a level of a frame, K2 and K4 once a
+    frame, and none of them through the plain versions."""
+    import numpy as np
+
+    import sdvo_tpu_torch.align.feature_alignment as fa_mod
+    import sdvo_tpu_torch.align.image_alignment as ia_mod
+    import sdvo_tpu_torch.depth.epipolar as ep_mod
+    from sdvo_tpu_torch.align.image_alignment import AlignFeatures, SparseImageAlign
+    from sdvo_tpu_torch.dataio.synthetic import render_plane_track
+    from sdvo_tpu_torch.depth.filter import init_filters
+    from sdvo_tpu_torch.geometry.se3 import SE3
+    from sdvo_tpu_torch.image.interp import extract_patches
+    from sdvo_tpu_torch.image.pyramid import build_pyramid
+    from sdvo_tpu_torch.pipeline.streaming import StreamingTracker
+
+    dev = _cuda()
+    F, N, M, C, levels = 5, 64, 32, 16, 3
+    cam = dict(fx=120.0, fy=120.0, cx=80.0, cy=60.0, width=160, height=120)
+    sc = render_plane_track(np.random.default_rng(42), cam, [0.08, 0.01, 0.05, 0.001, 0.004, 0.0008], F, N, C)
+    pyr = build_pyramid(torch.from_numpy(sc.ref).to(dev), levels)
+    feats = AlignFeatures(torch.from_numpy(sc.uv).to(dev), torch.zeros(N, dtype=torch.int32, device=dev),
+                          torch.from_numpy(sc.points).to(dev), torch.ones(N, dtype=torch.bool, device=dev))
+    fuv = torch.from_numpy(sc.filter_uv).to(dev)
+    patches, _ = extract_patches(pyr.base_image, fuv, 7)
+    bank = init_filters(fuv, torch.from_numpy(sc.filter_bearing).to(dev), patches, 0, 9.0, 4.0, 0,
+                        torch.arange(C, device=dev) < 12)
+
+    def chunk():
+        tracker = StreamingTracker(SparseImageAlign(patch_size=5, min_level=0, max_level=levels - 1),
+                                   levels=levels)
+        assert tracker.device.type == "cuda"
+        _, out = tracker.track_chunk(sc.frames, [im[None] for im in pyr.images], pyr.base_gradient, feats,
+                                     feats.uv_host[:M], torch.ones(M, dtype=torch.bool, device=dev),
+                                     SE3.identity(device=dev), SE3.identity(device=dev), bank,
+                                     cam["fx"], cam["fy"], cam["cx"], cam["cy"], 0)
+        return out
+
+    def projected(out):
+        R = out.rotations.double().cpu().numpy()
+        t = out.translations.double().cpu().numpy()
+        p = np.einsum("fij,nj->fni", R, sc.points.astype(np.float64)) + t[:, None]
+        return np.stack([cam["fx"] * p[..., 0] / p[..., 2] + cam["cx"],
+                         cam["fy"] * p[..., 1] / p[..., 2] + cam["cy"]], -1)
+
+    before = {k: m.launches for k, m in MODULES.items()}
+    kernels = chunk()
+    torch.cuda.synchronize()
+    launches = {k: m.launches - before[k] for k, m in MODULES.items()}
+    assert launches == {"lm_align_level": levels * F, "fa_align_batch": F, "pose_refine": 0,
+                        "depth_scores": F}, launches
+    monkeypatch.setattr(ia_mod, "lm_align_level", lm_align.lm_align_level_plain)
+    monkeypatch.setattr(fa_mod, "fa_align_batch", fa_align.fa_align_batch_plain)
+    monkeypatch.setattr(ep_mod, "depth_scores", depth_scores.depth_scores_plain)
+    before = {k: m.launches for k, m in MODULES.items()}
+    plain = chunk()
+    assert all(m.launches == before[k] for k, m in MODULES.items())
+    gaps = np.abs(projected(kernels) - projected(plain)).max(axis=(1, 2))
+    assert gaps.max() < 0.15 and (gaps < 0.01).sum() >= F - 1, gaps
