@@ -19,14 +19,23 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    Then K1, K2 and K3 against their plain versions at the extra shapes of
    ``selfcheck.extra_problems`` (correctness only).
 4. Drives ``DeviceSystem`` (on its default device, the card, in the mode it
-   ships with: deterministic algorithms) — bootstrap plus chunks of 8
-   supersteps — on the
+   ships with: deterministic algorithms, each chunk a replay of its CUDA
+   graph) — bootstrap plus chunks of 8 supersteps — on the
    rendered 1241×376 scene of ``bench.py`` with its overrides, asserts its
    accuracy gates (no failed frame, exact keyframe cadence, scale-aligned
-   ATE < 0.10 m, drift < 1.5 %), that every kernel launched during that run
-   and that no plain version ran on a CUDA tensor; prints frames/s and a
-   digest of the trajectory. After step 7 it runs again and must give the
-   same trajectory bits.
+   ATE < 0.10 m, drift < 1.5 %), that every kernel launched during that run,
+   that one chunk graph replayed once a chunk with K1 four launches a frame
+   and K2–K4 one, and that no plain version ran on a CUDA tensor; prints
+   frames/s, the graph's capture seconds and pool bytes and a digest of the
+   trajectory. Then one more replay of that run's own chunk graph, every
+   count set to 0 just before (``check_replay``): its launches, counted and
+   by ``torch.profiler``, are 96/24/24/24, and another replay makes no host
+   sync. Then (``run_graph_checks``), from one bootstrapped state:
+   two graphed chunks and a one-superstep tail bit for bit the eager loop's,
+   no aliasing of a chunk's outputs by the next replay, and host ms,
+   device-busy ms and idle share a frame, eager against graph. After step 7 the main path runs again as the eager loop
+   (``DeviceVO.run_chunk_eager``) and once more graphed: all three must give
+   the same trajectory bits.
 5. Drives the per-frame host ``System`` on the card over 2 + 24 frames of the
    same scene with the same gates, and asserts that K1 launched four times a
    frame, K2 and K4 launched, K3 did not (this path polishes with
@@ -37,8 +46,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 7. Failure and recovery: ``DeviceSystem`` on the same scene with one
    superstep of black frames: those frames fail with no pose, the host path
    takes over and relocalizes, ``_pack`` puts the state back on the card and
-   two more chunks are tracked there; the same sequence on the CPU gives the
-   same result for every frame.
+   two more chunks are tracked there, replays of the chunk graph captured
+   before the blackout; the same sequence on the CPU gives the same result
+   for every frame.
 8. The batched kernels: each kernel's one launch for ``BATCH`` = 8 stacked
    problems (``selfcheck.batched_problems``, through ``torch.func.vmap`` of
    its wrapper) against its plain version one problem at a time, and timed
@@ -50,10 +60,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    passes the main path's gates, sequence 0 gives the main path's result
    for every frame with camera centres within 2 % of the path length, and
    over the joint chunks K1 launched four times a frame step and K2, K3, K4
-   once (for all sequences together), no plain version ran on a CUDA tensor
-   and vmap fell back to a loop for none of the four ops. Prints
-   aggregate and per-sequence frames/s at S = 8 and at S = 1 (two timed
-   chunks after one warm-up), beside the main path's.
+   once (for all sequences together; launches of the joint graph's
+   capture warm-up apart), no plain version ran on a CUDA tensor
+   and vmap fell back to a loop for none of the four ops; the same
+   sequences with the joint chunks as the eager loop give the same bits.
+   Prints aggregate and per-sequence frames/s at S = 8, graphed and eager,
+   and at S = 1 (two timed chunks after one warm-up), beside the main
+   path's, and a joint chunk's host ms, device-busy ms and idle share.
 10. Isolation: sequence 0 of a batch of two gets the same bits beside
    another texture, and, bootstrapped once, the same outputs and state
    bits from the joint chunks in the other slot.
@@ -78,10 +91,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    within 0.06 m and 0.01 rad of the truth on the card and, through the
    plain versions, on the CPU; the carry is the last frame's outputs; two
    card runs give the same bits; K1 four launches a frame, K2 and K4 one, K3
-   none. Prints frames/s, K2's converged share, the converged filters' depth
-   error, the card-CPU gap and the host syncs of one chunk.
+   none (launches of the capture's warm-up apart); each chunk a replay of
+   one CUDA graph, with no host sync in a replay, bit for bit the eager
+   loop's, its launches by ``torch.profiler`` as captured. Prints frames/s
+   graphed and eager, K2's converged share, the converged filters' depth
+   error, the card-CPU gap and the host syncs of a chunk.
 14. Prints the kernels' JSON line (each row with its launches on the main,
-   host and streaming paths), then last the device JSON line.
+   host and streaming paths and in one replay of its path's chunk graph),
+   then last the device JSON line.
 
 Imports nothing of JAX. Exits non-zero on any failure, without a result;
 alone, without the package beside it, it fails at its first import of
@@ -274,20 +291,17 @@ def check_batched_kernels(device, failures, rows, empty_ms: float):
     rows.update(out)
 
 
-def kernel_modules():
-    from sdvo_tpu_torch.ops import depth_scores, fa_align, lm_align, pose_refine
-
-    return {"lm_align_level": lm_align, "fa_align_batch": fa_align, "pose_refine": pose_refine,
-            "depth_scores": depth_scores}
-
-
 class LaunchCount:
     """Sets every kernel's launch count to 0 on entry; on exit holds the
     launches of the block and how often a plain version ran on a CUDA tensor
-    in it."""
+    in it. Under a CUDA graph a launch counts at every replay (captured
+    launches × replays, ``pipeline.cuda_graph``), and a capture's warm-up
+    launches count too: ``warmup_launches`` says how many of those."""
 
     def __enter__(self):
-        self.mods = kernel_modules()
+        from sdvo_tpu_torch.ops import build
+
+        self.mods = build.kernel_modules()
         for m in self.mods.values():
             m.launches = 0
         self._plain = {k: m.plain_cuda_calls for k, m in self.mods.items()}
@@ -296,6 +310,110 @@ class LaunchCount:
     def __exit__(self, *exc):
         self.launches = {k: m.launches for k, m in self.mods.items()}
         self.plain_on_cuda = {k: m.plain_cuda_calls - self._plain[k] for k, m in self.mods.items()}
+
+
+# each kernel's function name in csrc/, as torch.profiler names its launches
+KERNEL_SYMBOLS = {"lm_align_level": "lm_align_level_kernel", "fa_align_batch": "fa_align_kernel",
+                  "pose_refine": "pose_refine_kernel", "depth_scores": "depth_scores_kernel"}
+
+
+def warmup_launches(graphs) -> dict:
+    """Each kernel's launches in the warm-ups of ``graphs`` (``Capture``s of
+    ``pipeline.cuda_graph``)."""
+    return {k: sum(g.warmup_launches.get(k, 0) for g in graphs) for k in KERNEL_SYMBOLS}
+
+
+def graph_line(graphs: dict) -> str:
+    """Capture seconds, pool bytes, launches a replay and replays of each
+    graph of ``graphs`` (name → ``Capture``)."""
+    return "; ".join(f"{name}: captured in {g.capture_seconds:.2f} s, pool {g.pool_bytes} B, launches a replay "
+                     f"{g.captured_launches}, warm-up launches {g.warmup_launches}, {g.replays} replays"
+                     for name, g in graphs.items())
+
+
+def vo_graphs(vo) -> dict:
+    """The ``Capture``s of a ``DeviceVO``'s two graphs, by name ("chunk",
+    "superstep"; a second capture of one, in another mode or at other
+    shapes, gets its index after the name)."""
+    out = {}
+    for name, call in (("chunk", vo.chunk_graph), ("superstep", vo.step_graph)):
+        for i, g in enumerate(call.graphs.values()):
+            out[name if i == 0 else f"{name}{i}"] = g
+    return out
+
+
+def check_replay(name: str, replay, want: dict, graph) -> dict:
+    """``replay()`` replays ``graph``, a path's own graph: with every count
+    set to 0 just before, one replay must add ``want`` launches, which
+    ``torch.profiler``'s kernel events by name must match, and another
+    replay must make no host synchronisation. Returns the launches of the
+    first replay."""
+    before = graph.replays
+    with LaunchCount() as counts:
+        prof, events, _ = profiled_launches(replay)
+    _, syncs = host_syncs(replay)
+    print(f"{name}: one replay of its chunk graph launches {counts.launches}, torch.profiler counts {prof} "
+          f"({events} device events); host syncs in another replay {len(syncs)}{syncs or ''}", flush=True)
+    _require(graph.replays == before + 2, f"the {name}'s calls did not replay its chunk graph")
+    _require(counts.launches == want and prof == want,
+             f"a replay of the {name}'s chunk graph: {counts.launches} launches counted, {prof} by "
+             f"torch.profiler, not {want}")
+    _require(not any(counts.plain_on_cuda.values()),
+             f"plain versions ran on CUDA tensors: {counts.plain_on_cuda}")
+    _require(not syncs, f"host syncs inside a replayed chunk of the {name}: {syncs}")
+    return counts.launches
+
+
+def host_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: (its
+    result, each host synchronisation it made, as "file:line: source" of this
+    repository's files, in order)."""
+    import linecache
+    import warnings
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the warnings name the line of the op that synchronized; turning the
+    # mode off reports itself from torch's own code
+    return out, [f"{os.path.relpath(w.filename, root)}:{w.lineno}: {linecache.getline(w.filename, w.lineno).strip()}"
+                 for w in caught if "synchroniz" in str(w.message) and w.filename.startswith(root)]
+
+
+def profiled_launches(fn):
+    """``torch.profiler`` over ``fn()`` on the card: (each kernel's launches,
+    by kernel name; the device events in all; the ms in which the device ran
+    any of them, overlaps counted once)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = collections.Counter(e.name for e in device)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in device):
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return ({k: sum(n for name, n in names.items() if sym in name) for k, sym in KERNEL_SYMBOLS.items()},
+            len(device), busy_us / 1e3)
+
+
+def chunk_times(fn, frames: int, reps: int = 3):
+    """(host ms a frame: the median of ``reps`` calls of ``fn`` on the host
+    clock, each ended by a synchronize; device-busy ms a frame in one
+    profiled call; the device's idle share, 1 − busy / host)."""
+    host = _sync_ms(fn, reps) / frames
+    busy = profiled_launches(fn)[2] / frames
+    return host, busy, 1.0 - busy / host
 
 
 def bench_config():
@@ -358,18 +476,25 @@ def trajectory_digest(trajectory) -> str:
     return hashlib.sha256(poses.tobytes()).hexdigest()[:16]
 
 
-def run_main_path(card: str, frames, T_true, name: str = "main path"):
+def run_main_path(card: str, frames, T_true, name: str = "main path", eager: bool = False):
     """``DeviceSystem`` over the bench scene, in the mode it ships with
-    (deterministic algorithms on the card), with its gates. Returns (its
-    launches, the frames after the bootstrap, the system, frames/s)."""
+    (deterministic algorithms on the card, each chunk a replay of its CUDA
+    graph), with its gates, then ``check_replay`` on one more replay of the
+    run's own chunk graph; ``eager`` runs its chunks as the Python loop
+    (``DeviceVO.run_chunk_eager``) instead, for the A/B. Returns (its
+    launches, the frames after the bootstrap, the system, frames/s, each
+    kernel's launches in that replay, None when eager)."""
     import torch
 
+    from sdvo_tpu_torch.device import deterministic_on
     from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
 
     chunk = SUPERSTEPS_PER_CHUNK * PER
     n_frames = 2 + N_CHUNKS * chunk
     ds = DeviceSystem(bench_config(), supersteps_per_chunk=SUPERSTEPS_PER_CHUNK)  # the card by default
     _require(ds.device.type == "cuda", f"DeviceSystem chose {ds.device}, not the card")
+    if eager:
+        ds.vo.run_chunk = ds.vo.run_chunk_eager
 
     with LaunchCount() as counts:
         t_start = time.perf_counter()
@@ -398,11 +523,88 @@ def run_main_path(card: str, frames, T_true, name: str = "main path"):
     _require(not any(counts.plain_on_cuda.values()),
              f"plain versions ran on CUDA tensors: {counts.plain_on_cuda}")
     _require(ds.n_relocalizations == 0, f"the {name} fell back to the host")
+    graphs = vo_graphs(ds.vo)
+    per_replay = None
+    if eager:
+        _require(not graphs, f"the {name} made a graph")
+    else:
+        want = {k: (4 if k == "lm_align_level" else 1) * chunk for k in KERNEL_SYMBOLS}
+        print(f"{name} graphs: {graph_line(graphs)}", flush=True)
+        _require(list(graphs) == ["chunk"] and graphs["chunk"].replays == N_CHUNKS,
+                 f"the {name} did not replay its chunk graph once a chunk: {graph_line(graphs)}")
+        _require(graphs["chunk"].captured_launches == want, f"a replay of the {name}'s chunk launches "
+                 f"{graphs['chunk'].captured_launches}, not {want}")
+        # one more replay of this run's own graph, from its last state, on the last chunk's frames
+        H, W = frames[0].shape
+        imgs = torch.from_numpy(np.stack(frames[n_frames - chunk:n_frames])).to(ds.device).reshape(
+            SUPERSTEPS_PER_CHUNK, PER, H, W)
+        with deterministic_on(ds.device):
+            per_replay = check_replay(name, lambda: ds.vo.run_chunk(ds.state, imgs), want, graphs["chunk"])
     timed = chunk_s[1:]
     fps = len(timed) * chunk / sum(timed)
     print(f"{name} frames/s {fps:.2f} ({card}; DeviceSystem steady state, {len(timed)} chunks of "
-          f"{chunk} frames after one warm-up chunk)", flush=True)
-    return launches, n_frames - 2, ds, fps
+          f"{chunk} frames after one warm-up chunk, {'eager' if eager else 'CUDA graphs'})", flush=True)
+    return launches, n_frames - 2, ds, fps, per_replay
+
+
+def _leaves_equal(a, b) -> bool:
+    """Whether two trees of tensors hold the same bits, leaf for leaf."""
+    import torch
+
+    from sdvo_tpu_torch.pipeline.cuda_graph import flatten
+
+    la, lb = flatten(a)[0], flatten(b)[0]
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.contiguous().view(-1).view(torch.uint8), y.contiguous().view(-1).view(torch.uint8)) for x, y in zip(la, lb))
+
+
+def run_graph_checks(card: str, frames):
+    """``DeviceVO.run_chunk``'s graphs against the eager loop, from one
+    bootstrapped state of the bench scene: a chunk of 8 supersteps (its
+    capture) and the next, each bit for bit the eager chunk's; the first
+    chunk's outputs untouched by the second replay (no aliasing); no host
+    a tail of one superstep through the superstep graph, bit for bit. Also
+    lists the host synchronisations of one eager superstep (none: the
+    superstep is capture-safe) and times a chunk graphed and eager. The
+    main path's own graph is held to its launches and host syncs by
+    ``check_replay`` in ``run_main_path``."""
+    import torch
+
+    from sdvo_tpu_torch.device import deterministic_on
+    from sdvo_tpu_torch.pipeline.cuda_graph import flatten
+    from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
+
+    ds = DeviceSystem(bench_config(), supersteps_per_chunk=SUPERSTEPS_PER_CHUNK)
+    _track(ds, frames, 0, 2)
+    _require(ds.bootstrapped, "two-view bootstrap failed")
+    n = SUPERSTEPS_PER_CHUNK * PER
+    H, W = frames[0].shape
+    imgs = [torch.from_numpy(np.stack(frames[2 + c * n:2 + (c + 1) * n])).to(ds.device).reshape(
+        SUPERSTEPS_PER_CHUNK, PER, H, W) for c in range(2)]
+    vo, state0 = ds.vo, ds.state
+    with deterministic_on(ds.device):
+        vo.superstep(state0, imgs[0][0])
+        _, eager_syncs = host_syncs(lambda: vo.superstep(state0, imgs[0][0]))
+        e1 = vo.run_chunk_eager(state0, imgs[0])
+        g1 = vo.run_chunk(state0, imgs[0])
+        kept = [x.clone() for x in flatten(g1)[0]]
+        g2 = vo.run_chunk(g1[0], imgs[1])
+        e2 = vo.run_chunk_eager(e1[0], imgs[1])
+        untouched = all(torch.equal(a, b) for a, b in zip(kept, flatten(g1)[0]))
+        t_graph = vo.run_chunk(g2[0], imgs[0][:1])
+        t_eager = vo.run_chunk_eager(e2[0], imgs[0][:1])
+        timed = {way: chunk_times(lambda: run(g1[0], imgs[1]), n)
+                 for way, run in (("eager", vo.run_chunk_eager), ("graph", vo.run_chunk))}
+    same = [_leaves_equal(e1, g1), _leaves_equal(e2, g2), _leaves_equal(t_eager, t_graph)]
+    print(f"graphs ({card}): chunk 1, chunk 2 and a one-superstep tail graphed against eager: "
+          f"{['the same bits' if s else 'DIFFERENT bits' for s in same]}; chunk 1's outputs "
+          f"{'untouched' if untouched else 'CHANGED'} by the next replay; host syncs in one eager superstep "
+          f"{len(eager_syncs)}{eager_syncs or ''}; {graph_line(vo_graphs(vo))}", flush=True)
+    print(f"main path chunk of {n} frames ({card}), host ms a frame / device-busy ms a frame / idle share: "
+          + "; ".join(f"{way} {h:.3f} / {b:.3f} / {i:.3f}" for way, (h, b, i) in timed.items()), flush=True)
+    _require(all(same), "a graphed chunk differs from the eager loop")
+    _require(untouched, "a replay overwrote the outputs of the chunk before it")
 
 
 HOST_FRAMES = 2 + 24  # the host path's run
@@ -472,21 +674,28 @@ REC_FRAMES = 14 + 8 + 2 * REC_SUPERSTEPS * PER  # blackout, room for the host pa
 
 def _drive_recovery(seq, device):
     """``DeviceSystem`` over the blackout sequence. Returns it, what it looked
-    like right after the failed chunk, and the frame on which ``_pack`` put
-    the state back on the device."""
+    like right after the failed chunk, the frame on which ``_pack`` put the
+    state back on the device, and the replays of its chunk graph (on the
+    card) after the failed chunk and at the re-pack."""
     from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
 
     ds = DeviceSystem(bench_config(), supersteps_per_chunk=REC_SUPERSTEPS, device=device)
-    after_failure, repacked = None, None
+    after_failure, repacked, replays = None, None, [None, None]
+
+    def chunk_replays():
+        return sum(g.replays for g in ds.vo.chunk_graph.graphs.values())
+
     for i, im in enumerate(seq):
         on_host = ds.state is None
         ds.add_image(im.astype(np.float32), float(i))
         if i == REC_BLACK[-1]:
             after_failure = (ds.n_relocalizations, ds.state is None, ds.host.status.name)
+            replays[0] = chunk_replays()
         if i > REC_BLACK[-1] and on_host and ds.state is not None and repacked is None:
             repacked = i
+            replays[1] = chunk_replays()
     ds.finish()
-    return ds, after_failure, repacked
+    return ds, after_failure, repacked, replays
 
 
 def run_recovery(card: str, frames):
@@ -494,7 +703,7 @@ def run_recovery(card: str, frames):
     seq = [np.zeros_like(f) if i in REC_BLACK else f for i, f in enumerate(frames[:REC_FRAMES])]
     t0 = time.perf_counter()
     with LaunchCount() as counts:
-        ds, after_failure, repacked = _drive_recovery(seq, None)  # the card by default
+        ds, after_failure, repacked, replays = _drive_recovery(seq, None)  # the card by default
     t_card = time.perf_counter() - t0
     _require(ds.device.type == "cuda", f"DeviceSystem chose {ds.device}, not the card")
     results = [m["result"] for m in ds.metrics]
@@ -522,8 +731,16 @@ def run_recovery(card: str, frames):
     _require(all(n > 0 for n in counts.launches.values()), f"a kernel never launched: {counts.launches}")
     _require(not any(counts.plain_on_cuda.values()),
              f"plain versions ran on CUDA tensors: {counts.plain_on_cuda}")
+    graphs = vo_graphs(ds.vo)
+    graph = graphs.get("chunk")
+    print(f"recovery graphs: {graph_line(graphs)}; the chunk graph replayed {replays[0]} times before the "
+          f"blackout's relocalization, {replays[1]} at the re-pack, {graph.replays if graph else 0} at the end",
+          flush=True)
+    _require(graph is not None and len(ds.vo.chunk_graph.graphs) == 1 and len(ds.vo.step_graph.graphs) <= 1
+             and replays[0] >= 2 and graph.replays > replays[1] == replays[0],
+             "the re-packed state did not go back into the chunk graph captured before the blackout")
     t0 = time.perf_counter()
-    twin, _, twin_repacked = _drive_recovery(seq, "cpu")
+    twin, _, twin_repacked, _ = _drive_recovery(seq, "cpu")
     twin_results = [m["result"] for m in twin.metrics]
     print(f"recovery on the CPU (plain versions): back on the device path after frame "
           f"{twin_repacked}, results {''.join(r[0] for r in twin_results)} "
@@ -544,8 +761,11 @@ def _multi_fps(ms):
 
 
 def run_multi_seq(card: str, seqs, T_true, main_ds, main_fps: float, main_fps_again: float):
-    """``MultiSequenceSystem`` over ``BATCH`` sequences on the card, then over
-    sequence 0 alone. Returns the joint phase's launches and frame steps."""
+    """``MultiSequenceSystem`` over ``BATCH`` sequences on the card (its joint
+    chunks replays of their CUDA graph), then over the same sequences with
+    the joint chunks as the eager loop (``chunk_fn.eager``), which must give
+    the same bits, then over sequence 0 alone. Returns the joint phase's
+    launches, its frame steps and the joint graph's launches a replay."""
     from sdvo_tpu_torch.parallel import MultiSequenceSystem, vmap_fallbacks
 
     ms = MultiSequenceSystem(bench_config(), len(seqs), supersteps_per_chunk=SUPERSTEPS_PER_CHUNK)
@@ -555,6 +775,7 @@ def run_multi_seq(card: str, seqs, T_true, main_ds, main_fps: float, main_fps_ag
     t_boot = time.perf_counter() - t0
     with LaunchCount() as counts, vmap_fallbacks() as fallbacks:
         ms.joint(seqs)
+    timed = _joint_times(ms, seqs)
     results = ms.tail(seqs)
     steps = ms.frame_steps
     launches = counts.launches
@@ -572,15 +793,32 @@ def run_multi_seq(card: str, seqs, T_true, main_ds, main_fps: float, main_fps_ag
     print(f"multi-sequence 0 against the main path: the same {len(main_res)} results, camera centres "
           f"at most {apart:.3e} m apart ({100 * apart / path:.4f} % of the {path:.2f} m path)", flush=True)
     _require(apart < 0.02 * path, f"sequence 0 drifts from the main path: {apart} m of {path} m")
-    print(f"multi-sequence launches over {steps} frame steps of {len(seqs)} sequences: {launches}; "
-          f"vmap fallbacks {sorted(fallbacks) or 'none'}", flush=True)
+    graphs = ms.chunk_fn.graph.graphs
+    warm = warmup_launches(graphs.values())
+    print(f"multi-sequence launches over {steps} frame steps of {len(seqs)} sequences: {launches}, of them "
+          f"{warm} in the capture's warm-up; vmap fallbacks {sorted(fallbacks) or 'none'}; joint graph: "
+          f"{graph_line({'joint': g for g in graphs.values()})}", flush=True)
+    _require(len(graphs) == 1, f"{len(graphs)} joint graphs for one group and one chunk length")
+    captured = next(iter(graphs.values())).captured_launches
     for k, n in launches.items():
         want = 4 * steps if k == "lm_align_level" else steps
-        _require(n == want, f"{k} launched {n} times over {steps} frame steps, not {want}")
+        _require(n - warm[k] == want, f"{k} launched {n - warm[k]} times over {steps} frame steps, not {want}")
     _require(not any(counts.plain_on_cuda.values()),
              f"plain versions ran on CUDA tensors: {counts.plain_on_cuda}")
     _require(not fallbacks & set(FOUR_OPS), f"vmap looped over the batch for {fallbacks & set(FOUR_OPS)}")
     agg, per_seq = _multi_fps(ms)
+
+    eager = MultiSequenceSystem(bench_config(), len(seqs), supersteps_per_chunk=SUPERSTEPS_PER_CHUNK)
+    eager.chunk_fn = eager.chunk_fn.eager
+    eager_res = eager.run(seqs)
+    same = all(np.array_equal(np.asarray(a["trajectory"]), np.asarray(b["trajectory"]))
+               for a, b in zip(results, eager_res))
+    agg_eager, _ = _multi_fps(eager)
+    print(f"multi-sequence, joint chunks as the eager loop: {'the same' if same else 'DIFFERENT'} trajectory "
+          f"bits as through the graph; {agg_eager:.2f} aggregate frames/s against the graph's {agg:.2f} ({card}); "
+          f"a joint chunk at S = {len(seqs)}, host ms a frame step / device-busy ms a frame step / idle share: "
+          + "; ".join(f"{way} {h:.3f} / {b:.3f} / {i:.3f}" for way, (h, b, i) in timed.items()), flush=True)
+    _require(same, "the graphed joint chunks and the eager loop gave different trajectories")
 
     one = MultiSequenceSystem(bench_config(), 1, supersteps_per_chunk=SUPERSTEPS_PER_CHUNK)
     one_res = one.run(seqs[:1])
@@ -591,7 +829,25 @@ def run_multi_seq(card: str, seqs, T_true, main_ds, main_fps: float, main_fps_ag
           f"two timed after one warm-up): S = {len(seqs)}: {agg:.2f} aggregate, {per_seq:.2f} a sequence; "
           f"S = 1: {agg1:.2f}; the main path (DeviceSystem): {main_fps:.2f} and {main_fps_again:.2f} in "
           f"its two runs; bootstrap of {len(seqs)} sequences {t_boot:.2f} s", flush=True)
-    return launches, steps
+    return launches, steps, captured, warm
+
+
+def _joint_times(ms, seqs):
+    """``chunk_times`` of one joint chunk from the state after the joint
+    phase (the first chunk's frames again), through the graph and as the
+    eager loop."""
+    import torch
+
+    from sdvo_tpu_torch.device import deterministic_on
+
+    n = SUPERSTEPS_PER_CHUNK * PER
+    imgs = np.stack([np.stack(s[2:2 + n]) for s in seqs]).reshape(len(seqs), SUPERSTEPS_PER_CHUNK, PER,
+                                                                    *seqs[0][0].shape)
+    imgs = torch.from_numpy(np.ascontiguousarray(imgs.transpose(1, 0, 2, 3, 4))).to(ms.groups[0][0])
+    state = ms._state
+    with deterministic_on(imgs.device):
+        return {way: chunk_times(lambda: fn(state, imgs), n)
+                for way, fn in (("eager", ms.chunk_fn.eager), ("graph", ms.chunk_fn))}
 
 
 ISO_SUPERSTEPS = 2  # chunks of the isolation runs: 6 frames
@@ -611,14 +867,17 @@ def _bits(tree):
     return leaves
 
 
-def joint_by_slot(pair, supersteps: int, n_chunks: int, orders=((0, 1), (1, 0)),
-                  around=lambda k: contextlib.nullcontext(), device=None):
+def joint_by_slot(pair, supersteps: int, n_chunks: int, orders=((0, 1), (1, 0)), around=None, device=None):
     """The two sequences of ``pair`` bootstrapped once by
     ``MultiSequenceSystem`` (two host frames each), then ``n_chunks`` joint
     chunks of ``supersteps`` supersteps of the vmapped superstep
     (``multi_chunk_fn``, in the mode the joint phase runs in) on their states
-    stacked in each order of ``orders``, the k-th inside ``around(k)``, on
-    ``device`` (the card by default).
+    stacked in each order of ``orders``, on ``device`` (the card by default).
+    Without ``around`` the chunks replay their CUDA graph, as the joint phase
+    does; with it the k-th order runs inside ``around(k)`` as the eager loop
+    (``fn.eager``), so that a dispatch mode there sees every op (a replay
+    dispatches none, and a capture cannot hold a mode that reads tensors on
+    the host).
     Returns for each order, by sequence (not slot), the numpy arrays of that
     sequence's frame outputs and final state: a sequence in another slot
     starts from the same bits, so only the superstep can make them differ."""
@@ -631,6 +890,10 @@ def joint_by_slot(pair, supersteps: int, n_chunks: int, orders=((0, 1), (1, 0)),
     ms = MultiSequenceSystem(bench_config(), 2, supersteps_per_chunk=supersteps, device=device)
     ms.bootstrap([s[:2] for s in pair])  # raises unless both bootstrap on their first two frames
     device, per, fn = ms.groups[0][0], ms.period, multi_chunk_fn(ms.vo)
+    if around is None:
+        around = lambda k: contextlib.nullcontext()  # noqa: E731
+    else:
+        fn = fn.eager
     n = supersteps * per
     results = []
     for k, order in enumerate(orders):
@@ -1082,43 +1345,39 @@ def streaming_inputs(scene, cfg, device):
                 filters=bank)
 
 
-def track_stream(tracker, scene, inputs, cam, count_syncs_in=None):
-    """The chunks of ``scene`` in order, each from the last one's carry.
-    Returns (each chunk's outputs, the last carry, each chunk's seconds,
-    each chunk's launches, the syncs of chunk ``count_syncs_in`` as
-    (file, line, source) or None)."""
-    import linecache
-    import warnings
-
+def track_stream(tracker, scene, inputs, cam, count_syncs_in=None, eager=False):
+    """The chunks of ``scene`` in order, each from the last one's carry, its
+    frames staged on the tracker's device first (so that a chunk copies
+    nothing from the host); ``eager`` calls ``track_chunk_eager`` in place
+    of ``track_chunk``. Returns (each chunk's outputs, the last carry, each
+    chunk's seconds, each chunk's launches, the host syncs of chunk
+    ``count_syncs_in`` (``host_syncs``) or None)."""
     import torch
 
     from sdvo_tpu_torch.geometry.se3 import SE3
 
     dev = tracker.device
-    root = os.path.dirname(os.path.abspath(__file__))
+    track = tracker.track_chunk_eager if eager else tracker.track_chunk
     T0 = SE3.identity(device=dev)
     T_cur, T_prev, bank = T0, T0, inputs["filters"]
+    kf_counter = torch.zeros((), dtype=torch.int32, device=dev)
     outs, seconds, launches, syncs = [], [], [], None
     for c in range(STREAM_CHUNKS):
-        images = scene.frames[c * STREAM_F:(c + 1) * STREAM_F]
+        images = torch.from_numpy(np.ascontiguousarray(scene.frames[c * STREAM_F:(c + 1) * STREAM_F])).to(dev)
+
+        def chunk():
+            return track(images, inputs["host_pyr"], inputs["host_grad0"], inputs["feats"], inputs["uv_match"],
+                         inputs["match_valid"], T_cur, T_prev, bank, cam["fx"], cam["fy"], cam["cx"], cam["cy"],
+                         kf_counter)
+
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        with contextlib.ExitStack() as stack:
-            counts = stack.enter_context(LaunchCount())
-            if c == count_syncs_in:
-                caught = stack.enter_context(warnings.catch_warnings(record=True))
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
+        with LaunchCount() as counts:
             t0 = time.perf_counter()
-            carry, out = tracker.track_chunk(images, inputs["host_pyr"], inputs["host_grad0"], inputs["feats"],
-                                             inputs["uv_match"], inputs["match_valid"], T_cur, T_prev, bank,
-                                             cam["fx"], cam["fy"], cam["cx"], cam["cy"], 0)
             if c == count_syncs_in:
-                torch.cuda.set_sync_debug_mode("default")
-                # the warnings name the line of the op that synchronized;
-                # turning the mode off reports itself from torch's own code
-                syncs = [(w.filename, w.lineno, linecache.getline(w.filename, w.lineno).strip())
-                         for w in caught if "synchroniz" in str(w.message) and w.filename.startswith(root)]
+                (carry, out), syncs = host_syncs(chunk)
+            else:
+                carry, out = chunk()
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
@@ -1183,6 +1442,7 @@ def run_streaming(card: str, failures):
 
     from sdvo_tpu_torch.align.image_alignment import SparseImageAlign
     from sdvo_tpu_torch.dataio.synthetic import KITTI_CAMERA, render_plane_track
+    from sdvo_tpu_torch.geometry.se3 import SE3
     from sdvo_tpu_torch.pipeline.streaming import StreamingTracker
 
     t_phase = time.perf_counter()
@@ -1209,19 +1469,41 @@ def run_streaming(card: str, failures):
     inputs = streaming_inputs(scene, cfg, card_tracker.device)
     outs, carry, seconds, counts, _ = track_stream(card_tracker, scene, inputs, cam)
     R, t, worst_t, worst_r = _stream_gates("the card", outs, carry, scene, failures)
-    per_chunk = [c.launches for c in counts]
-    for c in counts:
-        if (c.launches["lm_align_level"] != 4 * STREAM_F or c.launches["fa_align_batch"] != STREAM_F
-                or c.launches["depth_scores"] != STREAM_F or c.launches["pose_refine"] != 0):
-            failures.append(f"streaming path: launches of a chunk {c.launches}, not 4/1/0/1 a frame")
+    graphs = card_tracker.graph.graphs
+    warm = warmup_launches(graphs.values())
+    want = {"lm_align_level": 4 * STREAM_F, "fa_align_batch": STREAM_F, "pose_refine": 0, "depth_scores": STREAM_F}
+    # the first chunk's count holds the capture's warm-up too
+    per_chunk = [{k: n - (warm[k] if i == 0 else 0) for k, n in c.launches.items()} for i, c in enumerate(counts)]
+    for got, c in zip(per_chunk, counts):
+        if got != want:
+            failures.append(f"streaming path: launches of a chunk {got}, not 4/1/0/1 a frame")
         if any(c.plain_on_cuda.values()):
             failures.append(f"streaming path: plain versions ran on CUDA tensors: {c.plain_on_cuda}")
     launches = {k: sum(p[k] for p in per_chunk) for k in per_chunk[0]}
+    if len(graphs) != 1 or next(iter(graphs.values())).captured_launches != want:
+        failures.append(f"streaming path: {len(graphs)} graphs for one chunk length: "
+                        f"{graph_line({'stream': g for g in graphs.values()})}")
 
     outs2, carry2, _, _, syncs = track_stream(card_tracker, scene, inputs, cam, count_syncs_in=1)
     d1, d2 = _stream_digest(outs, carry), _stream_digest(outs2, carry2)
     if d1 != d2:
         failures.append(f"streaming path: two card runs gave different bits ({d1}, {d2})")
+    if syncs:
+        failures.append(f"streaming path: host syncs inside a replayed chunk: {syncs}")
+    outs_e, carry_e, seconds_e, _, syncs_e = track_stream(card_tracker, scene, inputs, cam, count_syncs_in=1,
+                                                          eager=True)
+    d_e = _stream_digest(outs_e, carry_e)
+    if d_e != d1:
+        failures.append(f"streaming path: the graphed chunks ({d1}) and the eager loop ({d_e}) differ")
+    T0 = SE3.identity(device=card_tracker.device)
+    frames0 = torch.from_numpy(np.ascontiguousarray(scene.frames[:STREAM_F])).to(card_tracker.device)
+    with LaunchCount() as replay_count:
+        prof, events, _ = profiled_launches(lambda: card_tracker.track_chunk(
+            frames0, inputs["host_pyr"], inputs["host_grad0"], inputs["feats"], inputs["uv_match"],
+            inputs["match_valid"], T0, T0, inputs["filters"], cam["fx"], cam["fy"], cam["cx"], cam["cy"], 0))
+    if prof != want or replay_count.launches != want:
+        failures.append(f"streaming path: a replay counts {replay_count.launches} launches and torch.profiler "
+                        f"{prof}, not {want}")
 
     t_cpu = time.perf_counter()
     cpu_tracker = tracker("cpu")
@@ -1236,22 +1518,25 @@ def run_streaming(card: str, failures):
     err = np.abs(depth - scene.filter_depth) / scene.filter_depth
     med_err = float(np.median(err[df_any])) if df_any.any() else float("nan")
     fps = STREAM_F / float(np.median(seconds[1:]))
+    fps_eager = STREAM_F / float(np.median(seconds_e[1:]))
     print(f"streaming path ({card}): StreamingTracker at {cam['width']}x{cam['height']}, {STREAM_LEVELS} levels, N "
           f"{alg.max_features_per_frame}, M {alg.max_reprojection_matches}, C {alg.max_filters}; "
           f"{STREAM_CHUNKS} chunks of {STREAM_F} frames against one keyframe, the motion a frame "
           f"{STREAM_STEP} x tests/test_streaming.py's dtau (frame {n_frames} sees {100 * seen_share:.1f} % of "
           f"the features); worst frame {worst_t:.5f} m / {worst_r:.6f} rad on the card, {worst_tc:.5f} m / "
           f"{worst_rc:.6f} rad on the CPU; card vs CPU {gap:.5f} px in projected features (not a gate); "
-          f"digests {d1} {d2}", flush=True)
-    print(f"streaming path frames/s {fps:.2f} ({card}; median of {STREAM_CHUNKS - 1} chunks of {STREAM_F} "
-          f"frames after one warm-up chunk; chunk seconds {[round(s, 4) for s in seconds]}); launches a chunk "
-          f"{per_chunk[0]}; K2 converged {100 * fa_conv:.1f} % of the matches; {int(df_any.sum())} filters "
-          f"converged, median depth error {100 * med_err:.2f} % against the 10 m plane; the CPU run "
-          f"{cpu_s:.1f} s", flush=True)
-    root = os.path.dirname(os.path.abspath(__file__))
-    where = collections.Counter(f"{os.path.relpath(f, root)}:{line}: {src}" for f, line, src in syncs)
-    print(f"streaming path host syncs in one chunk of {STREAM_F} frames: {len(syncs)}"
-          + "".join(f"\n  {n} x {k}" for k, n in where.most_common()), flush=True)
+          f"digests {d1} {d2}, the eager loop {d_e}", flush=True)
+    print(f"streaming path frames/s {fps:.2f} through the graph, {fps_eager:.2f} as the eager loop ({card}; median "
+          f"of {STREAM_CHUNKS - 1} chunks of {STREAM_F} frames after one warm-up chunk, the frames staged on the "
+          f"card first; chunk seconds {[round(s, 4) for s in seconds]}, eager {[round(s, 4) for s in seconds_e]}); "
+          f"launches a chunk {per_chunk[0]}, in one replay by torch.profiler {prof} ({events} device events); "
+          f"{graph_line({'stream': g for g in graphs.values()})}; K2 converged {100 * fa_conv:.1f} % of the "
+          f"matches; {int(df_any.sum())} filters converged, median depth error {100 * med_err:.2f} % against the "
+          f"10 m plane; the CPU run {cpu_s:.1f} s", flush=True)
+    for name, found in (("a replayed chunk", syncs), ("an eager chunk", syncs_e)):
+        where = collections.Counter(found)
+        print(f"streaming path host syncs in {name} of {STREAM_F} frames: {len(found)}"
+              + "".join(f"\n  {n} x {k}" for k, n in where.most_common()), flush=True)
     print(f"streaming path: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
@@ -1267,6 +1552,7 @@ def main() -> int:
     from sdvo_tpu_torch.dataio.synthetic import render_bench_sequences
     from sdvo_tpu_torch.ops import build, selfcheck
 
+    t_start = time.perf_counter()
     device = torch.device("cuda:0")
     card = selfcheck.card_line()
     print(card, flush=True)
@@ -1288,15 +1574,20 @@ def main() -> int:
     failures = []
     rows, empty_ms = check_kernels(device, failures)
     check_batched_kernels(device, failures, rows, empty_ms)
-    launches, steady_frames, main_ds, main_fps = run_main_path(card, frames, T_true)
+    launches, steady_frames, main_ds, main_fps, chunk_replay = run_main_path(card, frames, T_true)
+    run_graph_checks(card, frames)
     launches_host, host_frames = run_host_path(card, frames, T_true)
     run_recovery(card, frames)
-    _, _, again_ds, main_fps_again = run_main_path(card, frames, T_true, "main path, second run")
-    same = np.array_equal(np.asarray(main_ds.trajectory), np.asarray(again_ds.trajectory))
-    print(f"main path determinism: the two runs give {'the same' if same else 'DIFFERENT'} trajectory bits "
-          f"({trajectory_digest(main_ds.trajectory)}, {trajectory_digest(again_ds.trajectory)})", flush=True)
-    _require(same, "two runs of the main path gave different trajectories")
-    launches_multi, multi_steps = run_multi_seq(card, seqs, T_true, main_ds, main_fps, main_fps_again)
+    _, _, eager_ds, eager_fps, _ = run_main_path(card, frames, T_true, "main path, eager loop", eager=True)
+    _, _, again_ds, main_fps_again, _ = run_main_path(card, frames, T_true, "main path, second run")
+    digests = [trajectory_digest(d.trajectory) for d in (main_ds, again_ds, eager_ds)]
+    print(f"main path determinism: the two graphed runs and the eager run give trajectory digests {digests}; "
+          f"frames/s {main_fps:.2f} and {main_fps_again:.2f} through the graph, {eager_fps:.2f} as the eager loop "
+          f"({card})", flush=True)
+    _require(len(set(digests)) == 1, "the main path's runs gave different trajectories")
+    launches_multi, multi_steps, multi_replay, multi_warm = run_multi_seq(card, seqs, T_true, main_ds, main_fps,
+                                                                          main_fps_again)
+    main_warm = warmup_launches(vo_graphs(main_ds.vo).values())
     run_isolation(seqs)
     run_shard_axis(card)
     run_diagnostics(card, frames)
@@ -1310,18 +1601,23 @@ def main() -> int:
         # K1's row at the host path's shape counts that path's launches, the
         # batched rows the multi-sequence path's (a frame step: every
         # sequence); K4's extra shapes run on no path, so launch none there
-        on_path, n_path = ((launches_host, host_frames) if name == K1_HOST_ROW
-                           else (launches_multi, multi_steps) if name.endswith(f"[S{BATCH}]")
-                           else (launches, steady_frames))
+        on_path, n_path, warm = ((launches_host, host_frames, {}) if name == K1_HOST_ROW
+                                 else (launches_multi, multi_steps, multi_warm) if name.endswith(f"[S{BATCH}]")
+                                 else (launches, steady_frames, main_warm))
         n = on_path[base] if r["on_path"] else 0
+        w = warm.get(base, 0) if r["on_path"] else 0
+        replay = (None if name == K1_HOST_ROW  # the host path runs frame by frame, no graph
+                  else multi_replay[base] if name.endswith(f"[S{BATCH}]")
+                  else chunk_replay[base] if r["on_path"] else 0)
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": n, "max_abs_err": r["max_abs_err"],
+                        "launches": n, "launches_per_chunk_replay": replay, "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
                         "device_ms": r["device_ms"], "device_ms_cold": r["device_ms_cold"],
-                        "launches_per_frame": n / n_path, "on_path": r["on_path"],
+                        "launches_warmup": w, "launches_per_frame": (n - w) / n_path, "on_path": r["on_path"],
                         "launches_host_path": launches_host[base] if r["on_path"] else 0,
                         "launches_streaming": launches_stream[base] if r["on_path"] else 0})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

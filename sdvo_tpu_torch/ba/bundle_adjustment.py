@@ -160,7 +160,7 @@ def local_ba(poses: SE3, points: torch.Tensor, obs: BAObservations, fixed_cam: t
         pts = torch.where(keep[:, None], pts_new, pts)
     r0, ok0, _, _ = residuals(R_c, t_c, pts)
     chi = chi2_of(r0, _huber_w(r0, settings.huber_delta), ok0)
-    lam = torch.tensor(settings.init_lambda, dtype=dtype, device=dev)
+    lam = torch.full((), settings.init_lambda, dtype=dtype, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     free_c = (~fixed_cam).to(dtype)
     free6 = torch.repeat_interleave(free_c, 6)

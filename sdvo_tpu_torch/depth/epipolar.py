@@ -14,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from sdvo_tpu_torch.device import constant
 from sdvo_tpu_torch.geometry.se3 import SE3
 from sdvo_tpu_torch.geometry.triangulation import triangulate_two_view_depth
 from sdvo_tpu_torch.image.interp import patch_offsets
@@ -36,8 +37,8 @@ def affine_warp_matrix(T_cur_ref: SE3, uv_ref, depth_ref, fx, fy, cx, cy, half_p
         return b / torch.linalg.norm(b, dim=-1, keepdim=True)
 
     h = float(half_patch)
-    du = torch.tensor([h, 0.0], dtype=uv_ref.dtype, device=uv_ref.device)
-    dv = torch.tensor([0.0, h], dtype=uv_ref.dtype, device=uv_ref.device)
+    du = constant((h, 0.0), uv_ref.dtype, uv_ref.device)
+    dv = constant((0.0, h), uv_ref.dtype, uv_ref.device)
     c_c = _project(T_cur_ref.apply(backproject(uv_ref) * depth_ref[:, None]), fx, fy, cx, cy)
     c_u = _project(T_cur_ref.apply(backproject(uv_ref + du) * depth_ref[:, None]), fx, fy, cx, cy)
     c_v = _project(T_cur_ref.apply(backproject(uv_ref + dv) * depth_ref[:, None]), fx, fy, cx, cy)

@@ -4,6 +4,7 @@
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -113,6 +114,14 @@ def vogiatzis_update(mu, var, a, b, x, tau2, max_inv_depth):
     return mu_new, torch.clamp(var_new, min=1e-18), a_new, b_new
 
 
+@functools.lru_cache(maxsize=64)
+def _px_error_angle(fx: float, dtype: torch.dtype) -> float:
+    """The angle one pixel subtends, 2·atan(1 / 2fx), rounded as the
+    reference rounds it (in ``dtype``); a host constant, computed once a
+    focal length."""
+    return float(torch.arctan(torch.tensor(1.0 / (2.0 * fx), dtype=dtype))) * 2.0
+
+
 def update_filters(bank: FilterBank, T_cur_kf: SE3, cur_image, fx, fy, cx, cy, kf_counter,
                    patch_size: int = 7, num_steps: int = 16, staleness: int = 5,
                    convergence_factor: float = 10.0) -> Tuple[FilterBank, torch.Tensor]:
@@ -126,7 +135,7 @@ def update_filters(bank: FilterBank, T_cur_kf: SE3, cur_image, fx, fy, cx, cy, k
         T_cur_kf, cur_image, bank.ref_patch, bank.bearing_ref, bank.mu, inv_min, inv_max, valid,
         fx, fy, cx, cy, patch_size=patch_size, num_steps=num_steps,
     )
-    px_error_angle = float(torch.arctan(torch.tensor(1.0 / (2.0 * fx), dtype=dtype))) * 2.0
+    px_error_angle = _px_error_angle(fx, dtype)
     tau = compute_tau(T_cur_kf, bank.bearing_ref, depth, px_error_angle)
     d_minus = torch.clamp(depth - tau, min=1e-7)
     inv_tau = 0.5 * (1.0 / d_minus - 1.0 / (depth + tau))

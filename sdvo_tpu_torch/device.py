@@ -6,6 +6,7 @@ time, as the reference's compiled scan does."""
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 
 import torch
@@ -25,6 +26,15 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError('no CUDA device: the port runs on the card by default; pass '
                            'device="cpu" to run on the CPU')
     return torch.device("cuda")
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype)`` on ``device``, built once per
+    (values, dtype, device) and shared by every later call: a tensor built
+    from Python data on the card is a synchronous copy from the host, which
+    a CUDA graph cannot hold. Callers only read it."""
+    return torch.tensor(values, dtype=dtype).to(device)
 
 
 @contextlib.contextmanager

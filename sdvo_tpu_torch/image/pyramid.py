@@ -15,6 +15,8 @@ from typing import List, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from sdvo_tpu_torch.device import constant
+
 _PYRDOWN_TAPS = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 
 
@@ -28,7 +30,7 @@ def abs_gradient_saturated_sum(image: torch.Tensor, saturate: float = 255.0) -> 
 
 def pyr_down(image: torch.Tensor) -> torch.Tensor:
     """5-tap Gaussian blur + 2× decimation with REFLECT_101 borders."""
-    k = torch.tensor(_PYRDOWN_TAPS, dtype=image.dtype, device=image.device)
+    k = constant(_PYRDOWN_TAPS, image.dtype, image.device)
     x = F.pad(image[None, None], (2, 2, 2, 2), mode="reflect")  # reflect == REFLECT_101
     x = F.conv2d(x, k.view(1, 1, 5, 1), stride=(2, 1))
     x = F.conv2d(x, k.view(1, 1, 1, 5), stride=(1, 2))

@@ -108,6 +108,15 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def kernel_modules() -> dict:
+    """The four kernels' wrapper modules by kernel name, each with its
+    ``launches`` and ``plain_cuda_calls`` counters."""
+    from sdvo_tpu_torch.ops import depth_scores, fa_align, lm_align, pose_refine
+
+    return {"lm_align_level": lm_align, "fa_align_batch": fa_align, "pose_refine": pose_refine,
+            "depth_scores": depth_scores}
+
+
 def check(code: int, name: str):
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {code})")

@@ -39,7 +39,7 @@ def _bisect_median(x, vis, lo, hi, half_n):
 
 
 def _tukey_per_feature(r, vis, sigma_floor):
-    big = torch.tensor(3.0e38, dtype=r.dtype, device=r.device)
+    big = torch.full((), 3.0e38, dtype=r.dtype, device=r.device)
     cnt = vis.sum(1, keepdim=True)
     half_n = 0.5 * torch.clamp(cnt, min=1.0)
     lo = torch.where(vis > 0.5, r, big).min(1, keepdim=True).values

@@ -52,9 +52,9 @@ def bin_median(x: torch.Tensor, vis: torch.Tensor, lo: torch.Tensor, hi: torch.T
         prev = torch.cat([cnts.new_zeros(1), cnts[:-1]])
         hit = (prev < half_n) & (cnts >= half_n)
         any_hit = hit.any()
-        k = torch.argmax(hit.to(torch.int32))
-        frac = (half_n - prev[k]) / torch.clamp(cnts[k] - prev[k], min=1.0)
-        kf = b[k]
+        k = torch.argmax(hit.to(torch.int32)).reshape(1)  # indexed on the device, not read back
+        prev_k, cnts_k, kf = prev.index_select(0, k)[0], cnts.index_select(0, k)[0], b.index_select(0, k)[0]
+        frac = (half_n - prev_k) / torch.clamp(cnts_k - prev_k, min=1.0)
         med = torch.where(any_hit, lo + (kf + frac) * (span / bins), med)
         new_lo = torch.where(any_hit, lo + kf * (span / bins), lo)
         new_hi = torch.where(any_hit, lo + (kf + 1.0) * (span / bins), hi)
@@ -66,7 +66,7 @@ def mad_binned(r: torch.Tensor, vis: torch.Tensor, n_vis: torch.Tensor) -> torch
     """MAD = median(|r − median(r)|) over visible entries, two binned passes
     (``pallas_lm._mad_bisect``; ``vis`` is a 0/1 float mask shaped like r)."""
     half_n = 0.5 * n_vis
-    big = torch.tensor(3.0e38, dtype=r.dtype, device=r.device)
+    big = torch.full((), 3.0e38, dtype=r.dtype, device=r.device)
     lo = torch.where(vis > 0.5, r, big).min()
     hi = torch.where(vis > 0.5, r, -big).max()
     med = bin_median(r, vis, lo, hi, half_n)
@@ -166,8 +166,8 @@ def _plain(pose, windows, ref_patches, J, points_ref, origins, visible, fx: floa
     t = pose[:, 3].contiguous()
     r_acc, vis_acc = residuals(R, t)
     w_acc, chi = weights_chi2(r_acc, vis_acc)
-    lam = torch.tensor(1e-2, dtype=f32, device=dev)
-    nu = torch.tensor(2.0, dtype=f32, device=dev)
+    lam = torch.full((), 1e-2, dtype=f32, device=dev)
+    nu = torch.full((), 2.0, dtype=f32, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     eye6 = torch.eye(6, dtype=f32, device=dev)

@@ -54,8 +54,8 @@ def _plain(pose, points_w, bearings, valid, max_iters: int, min_rel_decrease: fl
     R = pose[:, :3].contiguous()
     t = pose[:, 3].contiguous()
     _, chi = weights_chi2(residuals(R, t)[0])
-    lam = torch.tensor(1e-2, dtype=f32, device=dev)
-    nu = torch.tensor(2.0, dtype=f32, device=dev)
+    lam = torch.full((), 1e-2, dtype=f32, device=dev)
+    nu = torch.full((), 2.0, dtype=f32, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     eye3 = torch.eye(3, dtype=f32, device=dev)

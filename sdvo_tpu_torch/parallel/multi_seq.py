@@ -9,8 +9,10 @@ every op of the superstep takes the S sequences at once, and each of the
 four kernels (an operator with a vmap rule) is one launch for all of them.
 With a mesh, the sequences split into contiguous groups, each one batched
 program on its ``seq`` device, with no communication (each sequence owns its
-map). This file holds what surrounds that vmap: state stacking, the chunk
-function and the lockstep runner.
+map). On the card a group's chunk runs as a CUDA graph of the vmapped
+supersteps (``pipeline.cuda_graph``), the counterpart of the reference's
+jitted scan. This file holds what surrounds that vmap: state stacking, the
+chunk function and the lockstep runner.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from sdvo_tpu_torch.device import deterministic_on, resolve_device
 from sdvo_tpu_torch.parallel.mesh import SeqShards, VOMesh, seq_groups, tree_map
+from sdvo_tpu_torch.pipeline.cuda_graph import GraphedCall
 from sdvo_tpu_torch.pipeline.device_system import DeviceSystem, DeviceVO, FrameOut, VOState
 
 
@@ -38,35 +41,71 @@ def unstack_states(state: VOState, n: int) -> List[VOState]:
     return [tree_map(lambda x: x[i], state) for i in range(n)]
 
 
+@contextlib.contextmanager
+def cusolver_linalg(device: torch.device):
+    """cuSOLVER for the linear algebra of the block on a CUDA ``device``
+    (nothing elsewhere). Under ``torch.func.vmap`` the bundle adjustment's
+    ``cholesky_solve`` is batched, and PyTorch's default sends a batched
+    solve to MAGMA, whose ``magma_spotrs_batched`` allocates device memory
+    with ``cudaMalloc``: a CUDA graph cannot capture that. One sequence's
+    solve (a batch of one) goes to cuSOLVER by default."""
+    if device.type != "cuda":
+        yield
+        return
+    was = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(was)
+
+
 def multi_chunk_fn(vo: DeviceVO, mesh: Optional[VOMesh] = None):
     """``(stacked VOState, images (C, S, per, H, W)) → (state, outs)``, a
     loop over the chunk's supersteps (as ``DeviceVO.run_chunk``) of
     ``torch.func.vmap(vo.superstep)``. ``outs`` is a FrameOut with leading
-    dims (C, S, per). With a mesh, ``fn.place(tree, images=False)`` cuts a
-    stacked state (``images=True``: the images, along their axis 1) over the
-    'seq' devices; given such ``SeqShards`` the function runs each group on
-    its device and returns ``SeqShards`` of states and of outputs."""
+    dims (C, S, per). On the card each group's chunk is a replay of a CUDA
+    graph of ``fn.graph``, captured once per card and shapes, and the state
+    and outputs are fresh tensors. ``fn.eager`` is the same function
+    as the Python loop on any device. Either way the linear algebra runs on
+    cuSOLVER on the card (``cusolver_linalg``). With a mesh, ``fn.place(tree,
+    images=False)`` cuts a stacked state (``images=True``: the images, along
+    their axis 1) over the 'seq' devices; given such ``SeqShards`` the
+    function runs each group on its device and returns ``SeqShards`` of
+    states and of outputs."""
     superstep = torch.func.vmap(vo.superstep)
 
-    def one(state: VOState, images: torch.Tensor):
+    def eager(state: VOState, images: torch.Tensor):
         outs = []
-        for c in range(images.shape[0]):
-            state, out = superstep(state, images[c])
-            outs.append(out)
+        with cusolver_linalg(images.device):
+            for c in range(images.shape[0]):
+                state, out = superstep(state, images[c])
+                outs.append(out)
         return state, FrameOut(*[torch.stack(x) for x in zip(*outs)])
 
-    def run(state, images):
-        if not isinstance(state, SeqShards):
-            return one(state, images)
-        done = [one(s, im) for s, im in zip(state, images)]
-        return SeqShards([d[0] for d in done], 0), SeqShards([d[1] for d in done], 1)
+    graph = GraphedCall(eager, "multi_chunk")
 
-    if mesh is not None:
-        def place(tree, images=False):
-            n = tree.shape[1] if images else tree.frame_id.shape[0]
-            return SeqShards.split(tree, mesh, n, axis=1 if images else 0)
+    def graphed(state: VOState, images: torch.Tensor):
+        return graph(state, images) if images.device.type == "cuda" else eager(state, images)
 
-        run.place = place  # type: ignore[attr-defined]
+    def runner(one):
+        def run(state, images):
+            if not isinstance(state, SeqShards):
+                return one(state, images)
+            done = [one(s, im) for s, im in zip(state, images)]
+            return SeqShards([d[0] for d in done], 0), SeqShards([d[1] for d in done], 1)
+
+        if mesh is not None:
+            def place(tree, images=False):
+                n = tree.shape[1] if images else tree.frame_id.shape[0]
+                return SeqShards.split(tree, mesh, n, axis=1 if images else 0)
+
+            run.place = place  # type: ignore[attr-defined]
+        return run
+
+    run = runner(graphed)
+    run.eager = runner(eager)  # type: ignore[attr-defined]
+    run.graph = graph  # type: ignore[attr-defined]
     return run
 
 
@@ -116,7 +155,9 @@ class MultiSequenceSystem:
     PyTorch's deterministic algorithms (``device.deterministic_on``):
     the bundle adjustment's float ``index_add`` would otherwise sum by
     atomic adds in whatever order the threads reach them, and a sequence
-    would not get the same bits from one run to the next. ``ransac_uniforms``: one array (or None)
+    would not get the same bits from one run to the next. ``chunk_fn`` is
+    the joint chunk (``multi_chunk_fn``): on the card a replay of a CUDA graph
+    a group (``chunk_fn.graph``). ``ransac_uniforms``: one array (or None)
     per sequence, for the host bootstrap. ``ds_kwargs`` go to every
     ``DeviceSystem``.
     """
@@ -140,7 +181,7 @@ class MultiSequenceSystem:
         ]
         self.supersteps_per_chunk = supersteps_per_chunk
         self.vo = self.subs[0].vo  # shared kernels: one program for every sequence
-        self._fn = multi_chunk_fn(self.vo, mesh)
+        self.chunk_fn = multi_chunk_fn(self.vo, mesh)
 
     @property
     def period(self) -> int:
@@ -192,8 +233,8 @@ class MultiSequenceSystem:
                              for i in range(self.n_seq)])  # (S, C·per, H, W)
             imgs = imgs.reshape(self.n_seq, C, per, *imgs.shape[2:]).transpose(1, 0, 2, 3, 4)
             imgs = torch.from_numpy(np.ascontiguousarray(imgs))  # (C, S, per, H, W)
-            imgs = imgs.to(self.groups[0][0]) if self.mesh is None else self._fn.place(imgs, images=True)
-            self._state, outs = self._fn(self._state, imgs)
+            imgs = imgs.to(self.groups[0][0]) if self.mesh is None else self.chunk_fn.place(imgs, images=True)
+            self._state, outs = self.chunk_fn(self._state, imgs)
             if isinstance(outs, SeqShards):
                 outs = outs.gather(torch.device("cpu"))
             outs = FrameOut(*[x.cpu().numpy() for x in outs])

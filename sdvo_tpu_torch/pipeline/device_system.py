@@ -4,10 +4,13 @@
 The whole steady-state loop runs on the device over a ``VOState`` of
 fixed-shape tensors: one *superstep* is ``keyframe_every_n`` frames, the last
 of which adds the keyframe program (feature insertion, depth-seed
-promotion, re-detection, windowed Schur BA, eviction). A chunk is a Python
-loop over supersteps. Shapes are fixed and the superstep never reads a
-device value on the host, so a later change can capture a chunk in a CUDA
-graph.
+promotion, re-detection, windowed Schur BA, eviction). Shapes are fixed and
+the superstep never reads a device value on the host, so on the card a chunk
+runs as a CUDA graph (``pipeline.cuda_graph``), the counterpart of the
+reference's ``chunk_fn`` (a ``jax.jit`` of ``lax.scan``): one graph for a
+whole chunk of ``chunk_supersteps`` supersteps, and one of a single superstep
+replayed for any other count. On the CPU a chunk is the Python loop
+(``run_chunk_eager``).
 
 Per frame the four hand-written kernels run: K1 four times (one per
 pyramid level, ``align_precomputed``), K2 once (``reproject_device``), K3
@@ -51,6 +54,7 @@ from sdvo_tpu_torch.mapping.device_map import (
 from sdvo_tpu_torch.ops.pose_refine import pose_refine
 from sdvo_tpu_torch.optim.optimizer import tree_where
 from sdvo_tpu_torch.ops.window_sampler import sample_windows, sample_windows_grad, window_gather
+from sdvo_tpu_torch.pipeline.cuda_graph import GraphedCall
 from sdvo_tpu_torch.pipeline.system import FrameResult, System, SystemStatus
 
 INT32_MAX = 2 ** 31 - 1
@@ -156,12 +160,19 @@ def _in_border(p, uv, W, H, b=8):
 
 
 class DeviceVO:
-    """Steady-state VO: superstep + chunk over a ``VOState``."""
+    """Steady-state VO: superstep + chunk over a ``VOState``. On the card
+    ``chunk_graph`` (a chunk of ``chunk_supersteps`` supersteps) and
+    ``step_graph`` (one superstep) hold its CUDA graphs, each captured at its
+    first use."""
 
-    def __init__(self, cam: PinholeCamera, cfg: SuperstepConfig, dtype=torch.float32):
+    def __init__(self, cam: PinholeCamera, cfg: SuperstepConfig, dtype=torch.float32,
+                 chunk_supersteps: int = 8):
         self.cam = cam
         self.cfg = cfg
         self.dtype = dtype
+        self.chunk_supersteps = chunk_supersteps
+        self.chunk_graph = GraphedCall(self.run_chunk_eager, "DeviceVO.chunk")
+        self.step_graph = GraphedCall(self.superstep, "DeviceVO.superstep")
         self.aligner = SparseImageAlign(
             patch_size=cfg.patch_align, min_level=0, max_level=cfg.levels - 1,
             settings=SparseImageAlign.DEFAULT_SETTINGS._replace(max_iterations=10,
@@ -476,7 +487,22 @@ class DeviceVO:
         return state, FrameOut(*[torch.stack(x) for x in zip(*outs)])
 
     def run_chunk(self, state: VOState, images: torch.Tensor):
-        """images (C, period, H, W) → (state, FrameOut with (C, period) axes)."""
+        """images (C, period, H, W) → (state, FrameOut with (C, period) axes).
+        On the card a replay of the captured chunk when C is
+        ``chunk_supersteps``, else C replays of the captured superstep; the
+        state and outputs are fresh tensors. On the CPU ``run_chunk_eager``."""
+        if images.device.type != "cuda":
+            return self.run_chunk_eager(state, images)
+        if images.shape[0] == self.chunk_supersteps:
+            return self.chunk_graph(state, images)
+        outs = []
+        for c in range(images.shape[0]):
+            state, out = self.step_graph(state, images[c])
+            outs.append(out)
+        return state, FrameOut(*[torch.stack(x) for x in zip(*outs)])
+
+    def run_chunk_eager(self, state: VOState, images: torch.Tensor):
+        """``run_chunk`` as a Python loop of eager supersteps, on any device."""
         outs = []
         for c in range(images.shape[0]):
             state, out = self.superstep(state, images[c])
@@ -546,7 +572,7 @@ class DeviceSystem:
             grad_threshold=float(config.initialization.threshold_gradient_magnitude),
             ba_presolve=cfg_a.ba_structure_presolve if ba_presolve is None else ba_presolve,
         )
-        self.vo = DeviceVO(self.camera, self.scfg)
+        self.vo = DeviceVO(self.camera, self.scfg, chunk_supersteps=supersteps_per_chunk)
         self.supersteps_per_chunk = supersteps_per_chunk
         self.state: Optional[VOState] = None
         self.trajectory: List[Optional[np.ndarray]] = []

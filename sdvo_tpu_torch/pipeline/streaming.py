@@ -6,11 +6,13 @@ reference keyframe's pyramid (K1 a level, ``SparseImageAlign.align``), the
 reprojection feature alignment of the matched features at the estimated pose
 (K2, ``align_features_2d``) and the depth-filter update against the frame
 (K4, ``update_filters``), carrying the pose chain and the filters from frame
-to frame. The reference runs the frames as one ``lax.scan``; here they are a
-Python loop over the chunk, staged on the device once, that reads nothing
-back to the host: fixed shapes, no ``.item()``, so that the chunk can be
-captured as a CUDA graph. Keyframe decisions and map bookkeeping stay with
-the caller, at chunk boundaries.
+to frame. The reference runs the frames as one ``lax.scan``
+(``_jit_track``); here the chunk's inputs are staged on the device once and
+its frames are a loop that reads nothing back to the host (fixed shapes, no
+``.item()``): on the card a CUDA graph of the F frame steps, captured once
+per F and camera (``pipeline.cuda_graph``), on the CPU the Python loop.
+Keyframe decisions and map bookkeeping stay with the caller, at chunk
+boundaries.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from sdvo_tpu_torch.depth.filter import FilterBank, update_filters
 from sdvo_tpu_torch.device import deterministic_on, resolve_device
 from sdvo_tpu_torch.geometry.se3 import SE3
 from sdvo_tpu_torch.image.pyramid import build_pyramid
+from sdvo_tpu_torch.pipeline.cuda_graph import GraphedCall
 
 
 class StreamCarry(NamedTuple):
@@ -59,7 +62,8 @@ class StreamingTracker:
     and alignment features stay fixed for the chunk, as they do between two
     keyframes of the reference (tracking is always against the last
     keyframe). ``device`` is where the chunk runs: the CUDA card unless the
-    caller names another (``"cpu"``)."""
+    caller names another (``"cpu"``). ``graph`` holds the chunk's CUDA
+    graphs on the card, one per (F, fx, fy, cx, cy)."""
 
     def __init__(self, aligner: SparseImageAlign, levels: int = 4, fa_patch: int = 5, fa_iters: int = 10,
                  const_velocity: bool = False, device=None):
@@ -76,6 +80,7 @@ class StreamingTracker:
         self.fa_iters = int(fa_iters)
         self.const_velocity = bool(const_velocity)
         self.device = resolve_device(device)
+        self.graph = GraphedCall(self._frames, "StreamingTracker.track_chunk")
 
     def _frame_step(self, carry: StreamCarry, image: torch.Tensor, host_pyr, host_grad0, feats: AlignFeatures,
                     uv_match, match_valid, fx: float, fy: float, cx: float, cy: float, kf_counter):
@@ -114,7 +119,19 @@ class StreamingTracker:
         ``T_prev`` the last two poses against the keyframe and ``filters``
         the depth-filter bank. Inputs may be tensors anywhere or numpy
         arrays; they move to the tracker's device once. Returns the carry
-        after the last frame and each frame's outputs stacked along F."""
+        after the last frame and each frame's outputs stacked along F. On the
+        card the frames run as a replay of the captured chunk, whose
+        outputs are fresh tensors."""
+        return self._track_chunk(True, images, host_pyr, host_grad0, feats, uv_match, match_valid, T_init,
+                                 T_prev, filters, fx, fy, cx, cy, kf_counter)
+
+    def track_chunk_eager(self, *args) -> Tuple[StreamCarry, StreamOutputs]:
+        """``track_chunk`` (the same arguments) as a Python loop of eager frame
+        steps, on any device."""
+        return self._track_chunk(False, *args)
+
+    def _track_chunk(self, graphed: bool, images, host_pyr, host_grad0, feats, uv_match, match_valid, T_init,
+                     T_prev, filters, fx, fy, cx, cy, kf_counter):
         dev = self.device
         if not isinstance(images, torch.Tensor):
             images = np.asarray(images)
@@ -125,10 +142,17 @@ class StreamingTracker:
         fx, fy, cx, cy = float(fx), float(fy), float(cx), float(cy)
 
         carry = StreamCarry(T_cur_ref=T_init, T_prev_ref=T_prev, filters=filters)
-        outs = []
+        args = (carry, images, host_pyr, host_grad0, feats, uv_match, match_valid, fx, fy, cx, cy, kf_counter)
         with deterministic_on(dev):
-            for f in range(images.shape[0]):
-                carry, out = self._frame_step(carry, images[f], host_pyr, host_grad0, feats, uv_match,
-                                              match_valid, fx, fy, cx, cy, kf_counter)
-                outs.append(out)
+            if graphed and dev.type == "cuda":
+                return self.graph(*args)
+            return self._frames(*args)
+
+    def _frames(self, carry: StreamCarry, images, *rest) -> Tuple[StreamCarry, StreamOutputs]:
+        """The frame steps of ``images`` in order from ``carry``; ``rest`` is
+        ``_frame_step``'s arguments after the image."""
+        outs = []
+        for f in range(images.shape[0]):
+            carry, out = self._frame_step(carry, images[f], *rest)
+            outs.append(out)
         return carry, StreamOutputs(*(torch.stack(column) for column in zip(*outs)))

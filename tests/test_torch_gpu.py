@@ -247,10 +247,12 @@ def test_multi_sequence_system_on_the_card():
     ms.bootstrap(seqs)
     before = {k: (m.launches, m.plain_cuda_calls) for k, m in MODULES.items()}
     ms.joint(seqs)
-    launches = {k: m.launches - before[k][0] for k, m in MODULES.items()}
+    # the joint chunks replay one CUDA graph; its capture's warm-up launched too
+    (graph,) = ms.chunk_fn.graph.graphs.values()
+    launches = {k: m.launches - before[k][0] - graph.warmup_launches[k] for k, m in MODULES.items()}
     results = ms.tail(seqs)
     steps = ms.frame_steps
-    assert steps == 12
+    assert steps == 12 and graph.replays == 2
     assert launches == {"lm_align_level": 4 * steps, "fa_align_batch": steps, "pose_refine": steps,
                         "depth_scores": steps}, launches
     assert all(m.plain_cuda_calls == before[k][1] for k, m in MODULES.items())
@@ -361,11 +363,11 @@ def test_streaming_chunk_matches_plain_versions_on_the_card(monkeypatch):
     bank = init_filters(fuv, torch.from_numpy(sc.filter_bearing).to(dev), patches, 0, 9.0, 4.0, 0,
                         torch.arange(C, device=dev) < 12)
 
-    def chunk():
+    def chunk():  # the eager loop: each launch counts once, no capture's warm-up
         tracker = StreamingTracker(SparseImageAlign(patch_size=5, min_level=0, max_level=levels - 1),
                                    levels=levels)
         assert tracker.device.type == "cuda"
-        _, out = tracker.track_chunk(sc.frames, [im[None] for im in pyr.images], pyr.base_gradient, feats,
+        _, out = tracker.track_chunk_eager(sc.frames, [im[None] for im in pyr.images], pyr.base_gradient, feats,
                                      feats.uv_host[:M], torch.ones(M, dtype=torch.bool, device=dev),
                                      SE3.identity(device=dev), SE3.identity(device=dev), bank,
                                      cam["fx"], cam["fy"], cam["cx"], cam["cy"], 0)
@@ -392,3 +394,213 @@ def test_streaming_chunk_matches_plain_versions_on_the_card(monkeypatch):
     assert all(m.launches == before[k] for k, m in MODULES.items())
     gaps = np.abs(projected(kernels) - projected(plain)).max(axis=(1, 2))
     assert gaps.max() < 0.15 and (gaps < 0.01).sum() >= F - 1, gaps
+
+
+# ------------------------------------------------- the chunks as CUDA graphs
+BENCH_OVERRIDES = {"initialization": {"disparity_threshold": 3, "threshold_gradient_magnitude": 20}}
+
+
+def _bootstrapped_on_card(supersteps: int = 2, n_chunks: int = 2):
+    """A ``DeviceSystem`` on the card bootstrapped on texture 0 of the
+    KITTI-sized ridge scene (chunks of ``supersteps`` supersteps), and the
+    next ``n_chunks`` chunks' frames on the card, (C, 3, H, W) each."""
+    import numpy as np
+
+    from sdvo_tpu_torch.config import load_config
+    from sdvo_tpu_torch.dataio.synthetic import render_bench_sequences
+    from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
+
+    n = 3 * supersteps
+    frames = render_bench_sequences((0,), 2 + n_chunks * n)[0][0]
+    ds = DeviceSystem(load_config(overrides=BENCH_OVERRIDES), supersteps_per_chunk=supersteps)
+    ds.add_image(frames[0], 0.0)
+    ds.add_image(frames[1], 1.0)
+    assert ds.bootstrapped
+    H, W = frames[0].shape
+    chunks = [torch.from_numpy(np.stack(frames[2 + c * n:2 + (c + 1) * n])).to(ds.device).reshape(supersteps, 3, H, W)
+              for c in range(n_chunks)]
+    return ds, chunks
+
+
+def _same_bits(a, b) -> bool:
+    from sdvo_tpu_torch.pipeline.cuda_graph import flatten
+
+    la, lb = flatten(a)[0], flatten(b)[0]
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.contiguous().view(-1).view(torch.uint8), y.contiguous().view(-1).view(torch.uint8)) for x, y in zip(la, lb))
+
+
+@pytest.mark.gpu
+def test_graphed_run_chunk_matches_the_eager_loop():
+    """``DeviceVO.run_chunk`` on the card replays one captured chunk: two
+    chunks in a row give the eager loop's state and outputs bit for bit, and
+    a replay launches each kernel as often as the eager chunk (K1 four times
+    a frame, K2–K4 once)."""
+    from sdvo_tpu_torch.device import deterministic_on
+
+    _cuda()
+    ds, (c0, c1) = _bootstrapped_on_card()
+    vo = ds.vo
+    with deterministic_on(ds.device):
+        g1 = vo.run_chunk(ds.state, c0)
+        g2 = vo.run_chunk(g1[0], c1)
+        e1 = vo.run_chunk_eager(ds.state, c0)
+        e2 = vo.run_chunk_eager(e1[0], c1)
+    torch.cuda.synchronize()
+    assert _same_bits(g1, e1) and _same_bits(g2, e2)
+    (graph,) = vo.chunk_graph.graphs.values()
+    assert not vo.step_graph.graphs and graph.replays == 2
+    assert graph.captured_launches == {"lm_align_level": 24, "fa_align_batch": 6, "pose_refine": 6,
+                                       "depth_scores": 6}, graph.captured_launches
+
+
+@pytest.mark.gpu
+def test_graphed_chunk_hands_back_no_alias():
+    """A state kept from chunk 1 is unchanged after chunk 2 has replayed: the
+    graph hands back copies, not its static buffers."""
+    from sdvo_tpu_torch.device import deterministic_on
+    from sdvo_tpu_torch.pipeline.cuda_graph import flatten
+
+    _cuda()
+    ds, (c0, c1) = _bootstrapped_on_card()
+    with deterministic_on(ds.device):
+        g1 = ds.vo.run_chunk(ds.state, c0)
+        kept = [x.clone() for x in flatten(g1)[0]]
+        ds.vo.run_chunk(g1[0], c1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kept, flatten(g1)[0]))
+    static = {x.data_ptr() for x in ds.vo.chunk_graph.last.static_out}
+    assert not static & {x.data_ptr() for x in flatten(g1)[0]}
+
+
+@pytest.mark.gpu
+def test_tail_superstep_and_full_chunk_both_graphed():
+    """A tail of one superstep replays the captured superstep, a full chunk
+    the captured chunk: a ``DeviceVO`` holds those two graphs, and each gives
+    the eager loop's bits."""
+    from sdvo_tpu_torch.device import deterministic_on
+
+    _cuda()
+    ds, (c0, _) = _bootstrapped_on_card()
+    vo = ds.vo
+    with deterministic_on(ds.device):
+        tail = vo.run_chunk(ds.state, c0[:1])
+        full = vo.run_chunk(tail[0], c0)
+        tail_e = vo.run_chunk_eager(ds.state, c0[:1])
+        full_e = vo.run_chunk_eager(tail_e[0], c0)
+    torch.cuda.synchronize()
+    assert _same_bits(tail, tail_e) and _same_bits(full, full_e)
+    (step,), (chunk,) = vo.step_graph.graphs.values(), vo.chunk_graph.graphs.values()
+    assert step.replays == 1 and chunk.replays == 1
+
+
+@pytest.mark.gpu
+def test_graphed_streaming_chunk_matches_the_eager_loop():
+    """``StreamingTracker.track_chunk`` on the card replays one captured
+    chunk of F frames: two chunks give ``track_chunk_eager``'s bits, and a
+    replay launches K1 once a level of a frame and K2, K4 once a frame."""
+    import numpy as np
+
+    from sdvo_tpu_torch.align.image_alignment import AlignFeatures, SparseImageAlign
+    from sdvo_tpu_torch.dataio.synthetic import render_plane_track
+    from sdvo_tpu_torch.depth.filter import init_filters
+    from sdvo_tpu_torch.geometry.se3 import SE3
+    from sdvo_tpu_torch.image.interp import extract_patches
+    from sdvo_tpu_torch.image.pyramid import build_pyramid
+    from sdvo_tpu_torch.pipeline.streaming import StreamingTracker
+
+    dev = _cuda()
+    F, N, M, C, levels = 5, 64, 32, 16, 3
+    cam = dict(fx=120.0, fy=120.0, cx=80.0, cy=60.0, width=160, height=120)
+    sc = render_plane_track(np.random.default_rng(42), cam, [0.08, 0.01, 0.05, 0.001, 0.004, 0.0008], 2 * F, N, C)
+    pyr = build_pyramid(torch.from_numpy(sc.ref).to(dev), levels)
+    feats = AlignFeatures(torch.from_numpy(sc.uv).to(dev), torch.zeros(N, dtype=torch.int32, device=dev),
+                          torch.from_numpy(sc.points).to(dev), torch.ones(N, dtype=torch.bool, device=dev))
+    fuv = torch.from_numpy(sc.filter_uv).to(dev)
+    patches, _ = extract_patches(pyr.base_image, fuv, 7)
+    bank = init_filters(fuv, torch.from_numpy(sc.filter_bearing).to(dev), patches, 0, 9.0, 4.0, 0,
+                        torch.arange(C, device=dev) < 12)
+    tracker = StreamingTracker(SparseImageAlign(patch_size=5, min_level=0, max_level=levels - 1), levels=levels)
+    fixed = ([im[None] for im in pyr.images], pyr.base_gradient, feats, feats.uv_host[:M],
+             torch.ones(M, dtype=torch.bool, device=dev))
+
+    def two_chunks(track):
+        eye = SE3.identity(device=dev)
+        carry, out1 = track(sc.frames[:F], *fixed, eye, eye, bank, cam["fx"], cam["fy"], cam["cx"], cam["cy"], 0)
+        return track(sc.frames[F:], *fixed, *carry, cam["fx"], cam["fy"], cam["cx"], cam["cy"], 0), out1
+
+    graphed = two_chunks(tracker.track_chunk)
+    eager = two_chunks(tracker.track_chunk_eager)
+    torch.cuda.synchronize()
+    assert _same_bits(graphed, eager)
+    (graph,) = tracker.graph.graphs.values()
+    assert graph.replays == 2
+    assert graph.captured_launches == {"lm_align_level": levels * F, "fa_align_batch": F, "pose_refine": 0,
+                                       "depth_scores": F}, graph.captured_launches
+
+
+@pytest.mark.gpu
+def test_graphed_joint_chunk_matches_the_eager_loop():
+    """The multi-sequence joint chunk (two textures of the KITTI-sized ridge
+    scene, chunks of two supersteps) replays its CUDA graph of the vmapped
+    supersteps and gives ``chunk_fn.eager``'s bits."""
+    import numpy as np
+
+    from sdvo_tpu_torch.config import load_config
+    from sdvo_tpu_torch.dataio.synthetic import render_bench_sequences
+    from sdvo_tpu_torch.device import deterministic_on
+    from sdvo_tpu_torch.parallel import MultiSequenceSystem
+
+    _cuda()
+    seqs = [r[0] for r in render_bench_sequences((0, 4), 2 + 6)]
+    ms = MultiSequenceSystem(load_config(overrides=BENCH_OVERRIDES), 2, supersteps_per_chunk=2)
+    ms.bootstrap([s[:2] for s in seqs])
+    imgs = np.stack([np.stack(s[2:8]) for s in seqs]).reshape(2, 2, 3, *seqs[0][0].shape)
+    imgs = torch.from_numpy(np.ascontiguousarray(imgs.transpose(1, 0, 2, 3, 4))).cuda()
+    with deterministic_on(imgs.device):
+        graphed = ms.chunk_fn(ms._state, imgs)
+        again = ms.chunk_fn(ms._state, imgs)
+        eager = ms.chunk_fn.eager(ms._state, imgs)
+    torch.cuda.synchronize()
+    assert _same_bits(graphed, eager) and _same_bits(graphed, again)
+    (graph,) = ms.chunk_fn.graph.graphs.values()
+    assert graph.replays == 2
+
+
+@pytest.mark.gpu
+def test_a_capture_that_fails_raises():
+    """No fallback: a function that reads a device value on the host cannot
+    be captured, and ``GraphedCall`` raises instead of running it eagerly."""
+    from sdvo_tpu_torch.pipeline.cuda_graph import GraphedCall
+
+    dev = _cuda()
+    call = GraphedCall(lambda x: x * float(x.sum()), "host-read")
+    with pytest.raises(RuntimeError, match="host-read: CUDA graph capture failed"):
+        call(torch.ones(4, device=dev))
+    assert call.graphs == {}
+
+
+@pytest.mark.gpu
+def test_a_mode_flip_captures_its_own_graph():
+    """A chunk run in PyTorch's default mode after one in the deterministic
+    mode does not replay the deterministic graph: it captures its own, which
+    gives the eager loop's bits in that mode, and a return to the
+    deterministic mode replays the first graph again."""
+    from sdvo_tpu_torch.device import deterministic_on
+
+    _cuda()
+    ds, (c0, _) = _bootstrapped_on_card()
+    vo = ds.vo
+    with deterministic_on(ds.device):
+        det = vo.run_chunk(ds.state, c0)
+        det_eager = vo.run_chunk_eager(ds.state, c0)
+    default = vo.run_chunk(ds.state, c0)
+    with deterministic_on(ds.device):
+        det_again = vo.run_chunk(ds.state, c0)
+    torch.cuda.synchronize()
+    assert _same_bits(det, det_eager) and _same_bits(det, det_again)
+    first, second = vo.chunk_graph.graphs.values()
+    assert first.replays == 2 and second.replays == 1
+    # the default mode sums by atomics in any order: its own bits, every frame tracked
+    assert bool(default[1].ok.all()) and bool(torch.isfinite(default[1].t).all())
