@@ -9,8 +9,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    main path's shapes (K1: 256 features at all four levels, and the host
    path's 512 features at 12 iterations a level; K2: 150; K3: 150; K4: 512
    filters × 16 steps, one reference patch a filter; and K4 at the extra
-   shapes of ``selfcheck.depth_extra_problems``, rows of their own, which
-   no path runs: their rows say ``"on_path": false`` and 0 launches) and
+   shapes of ``selfcheck.depth_extra_problems`` and K1 with
+   ``freeze_sigma`` at the main path's shape (``selfcheck.freeze_problems``),
+   rows of their own, which no path runs: their rows say ``"on_path": false``
+   and 0 launches) and
    times both: the wrapper on the host clock, the kernel
    alone on the device with its inputs warm in the L2 cache (beside an empty
    kernel), the least time the card could take for the same work
@@ -49,6 +51,17 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    two more chunks are tracked there, replays of the chunk graph captured
    before the blackout; the same sequence on the CPU gives the same result
    for every frame.
+   Then the JAX package's long run (``run_long``): ``DeviceSystem`` with
+   ``tests/test_long_sequence.py``'s configuration (320×240, chunks of 4
+   supersteps) over its 300 frames with a blackout at 150–158, every gate
+   of that test at its thresholds, the relocalization re-packed into the
+   chunk graph captured before the blackout (its replays counted), two runs
+   with one digest. Then BASELINE config 2 (``run_euroc``): ``System`` at
+   752×480 and 5 levels over ``tests/test_euroc.py``'s 10 frames with its
+   gates and K1 five launches a frame, and ``DeviceSystem`` at the same
+   preset over 2 + 24 frames: no failed frame, exact keyframe cadence, K1
+   at 4/4/6/8/10 iterations (levels 0–4), five launches a frame, the chunk
+   graph captured at 5 levels, two runs with one digest.
 8. The batched kernels: each kernel's one launch for ``BATCH`` = 8 stacked
    problems (``selfcheck.batched_problems``, through ``torch.func.vmap`` of
    its wrapper) against its plain version one problem at a time, and timed
@@ -97,8 +110,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    graphed and eager, K2's converged share, the converged filters' depth
    error, the card-CPU gap and the host syncs of a chunk.
 14. Prints the kernels' JSON line (each row with its launches on the main,
-   host and streaming paths and in one replay of its path's chunk graph),
-   then last the device JSON line.
+   host and streaming paths, in one replay of its path's chunk graph, and
+   in ``launches_by_phase``: each path's run, the long run and the two
+   EuRoC runs included, counted from 0 just before it), then last the
+   device JSON line.
 
 Imports nothing of JAX. Exits non-zero on any failure, without a result;
 alone, without the package beside it, it fails at its first import of
@@ -122,6 +137,7 @@ SOURCES = {
     "depth_scores": ("sdvo_tpu_torch/csrc/depth_scores.cu", "sdvo_tpu/ops/pallas_depth.py:57"),
 }
 K1_HOST_ROW = "lm_align_level[N512]"  # K1 at the host path's shape: a row of its own
+K1_FREEZE_ROW = "lm_align_level[freeze_sigma]"  # K1 with freeze_sigma, which no path sets
 BATCH = 8  # sequences of the multi-sequence path, and problems of a batched launch
 # texture seeds of the multi-sequence scene: 0-7, each seed that fails the
 # main path's gates alone through DeviceSystem replaced by the next that
@@ -153,7 +169,7 @@ def check_kernels(device, failures):
     print("library_ms: none for any of the four kernels: no single PyTorch call computes a whole "
           "LM solve or a fused sample-centre-ZSSD pass", flush=True)
     rows = {}
-    extra = selfcheck.depth_extra_problems(device)
+    extra = selfcheck.depth_extra_problems(device) + selfcheck.freeze_problems(device)
     for name, args, kw in selfcheck.kernel_problems(device) + extra:
         base = name.split("[")[0]
         kernel, plain = selfcheck.case_calls(name, args, kw)
@@ -185,8 +201,10 @@ def check_kernels(device, failures):
               flush=True)
         if not ok:
             failures.append(f"{name} disagrees with its plain version: {err}")
-        # K1's levels sum to one row a frame; K4's extra shapes are rows of their own
+        # K1's levels sum to one row a frame (with freeze_sigma, a row of their
+        # own); K4's extra shapes are rows of their own
         row = (K1_HOST_ROW if name.startswith(selfcheck.HOST_LM)
+               else K1_FREEZE_ROW if name.startswith(selfcheck.FREEZE_LM)
                else name if base == "depth_scores" else base)
         r = rows.setdefault(row, {"max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
                                    "bound_ms": 0.0, "t_bytes": 0.0, "t_flops": 0.0,
@@ -747,6 +765,273 @@ def run_recovery(card: str, frames):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     _require(twin_results == results and twin_repacked == repacked,
              "the port on the card and the port on the CPU disagree on a frame's result")
+
+
+# the JAX package's long run (tests/test_long_sequence.py): its overrides
+# (:69-81) and DeviceSystem arguments (:82-83), 300 frames, black 150-158
+LONG_OVERRIDES = {
+    "camera": {"img_width": 320, "img_height": 240},
+    "initialization": {"min_detected_points": 60, "desired_detected_points": 150,
+                       "threshold_gradient_magnitude": 20, "disparity_threshold": 2},
+    "algorithm": {"cell_pixel_size": 24, "min_tracked_features": 20, "max_dropped_features": 150,
+                  "max_reprojection_matches": 96, "max_features_per_frame": 160, "max_points": 1024,
+                  "max_filters": 256, "keyframe_every_n": 3},
+}
+LONG_KW = dict(supersteps_per_chunk=4, max_promote=32, ba_points=256, ba_iterations=4)
+LONG_FRAMES = 300
+LONG_BLACK = range(150, 159)
+
+
+def long_config():
+    from sdvo_tpu_torch.config import load_config
+
+    return load_config(overrides=LONG_OVERRIDES)
+
+
+def drift(est, gt):
+    """(scale-aligned ATE, path length of ``gt``) of camera centres."""
+    from sdvo_tpu_torch.dataio.evaluate import ate_rmse
+
+    return ate_rmse(est, gt, with_scale=True), float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=-1)))
+
+
+def _centres_of(trajectory, T_true):
+    """(estimated centres, true centres, frame indices) of the tracked frames."""
+    idx = [i for i, T in enumerate(trajectory) if T is not None]
+    c = lambda T: -T[:3, :3].T @ T[:3, 3]  # noqa: E731
+    return (np.asarray([c(trajectory[i]) for i in idx]), np.asarray([c(T_true[i]) for i in idx]),
+            np.asarray(idx))
+
+
+def long_gates(ds, T_true) -> dict:
+    """Every gate of ``tests/test_long_sequence.py`` at its thresholds;
+    returns the numbers they read."""
+    cfg = ds.config.algorithm
+    black = LONG_BLACK
+    _require(len(ds.trajectory) == LONG_FRAMES, f"{len(ds.trajectory)} poses for {LONG_FRAMES} frames")
+    est, gt, idx = _centres_of(ds.trajectory, T_true)
+    pre = idx < black.start
+    _require(pre.sum() >= black.start - 3, f"only {pre.sum()} frames tracked before the blackout")
+    ate_pre, path_pre = drift(est[pre], gt[pre])
+    _require(ate_pre / path_pre < 0.06, f"drift before the blackout {ate_pre / path_pre}")
+    results = [m["result"] for m in ds.metrics]
+    _require("FAILED" in results[black.start:black.stop + 3], "no frame failed in the blackout")
+    _require(ds.n_relocalizations >= 1, "no relocalization")
+    post = results[black.stop + 5:]
+    frac_ok = float(np.mean([r != "FAILED" for r in post]))
+    _require(frac_ok > 0.9, f"only {frac_ok:.0%} of the frames after the blackout tracked")
+    _require(ds.bootstrapped, "the device path did not re-engage")
+    if ds.state is not None:
+        n_live, n_ever = int(ds.state.map.kf_valid.sum()), int(ds.state.map.kf_counter)
+    else:
+        n_live, n_ever = ds.host.arena.num_keyframes(), ds.host.arena.kf_counter
+    _require(n_live <= cfg.max_keyframes + 1 and n_ever >= 60 and n_ever - n_live >= 40,
+             f"keyframes: {n_ever} made, {n_live} live")
+    caps = [m["n_filters"] for m in ds.metrics if "n_filters" in m]
+    _require(max(caps) <= cfg.max_filters and caps[-1] > 0, f"filter bank: peak {max(caps)}, last {caps[-1]}")
+    ate, path = drift(est, gt)
+    _require(ate / path < 0.12, f"drift over the run {ate / path}")
+    _require((idx >= black.stop).sum() > 100, "fewer than 100 frames tracked after the blackout")
+    return {"drift_pre": ate_pre / path_pre, "drift": ate / path, "keyframes": n_ever, "evicted": n_ever - n_live,
+            "peak_filters": max(caps), "relocalizations": ds.n_relocalizations, "post_ok": frac_ok,
+            "failed": [i for i, r in enumerate(results) if r == "FAILED"]}
+
+
+def drive_long(frames, device=None):
+    """``DeviceSystem`` with the long run's configuration over ``frames``.
+    Returns it, the frames/s of the whole run (host frames included) and
+    the replays of its first chunk graph (the 4-superstep chunk, captured
+    before the blackout) at the relocalization, at the re-pack and at the
+    end."""
+    import torch
+
+    from sdvo_tpu_torch.dataio.synthetic import LONG_CAMERA
+    from sdvo_tpu_torch.geometry.camera import PinholeCamera
+    from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
+
+    ds = DeviceSystem(long_config(), camera=PinholeCamera.create(**LONG_CAMERA), device=device, **LONG_KW)
+    at = {}
+
+    def first_replays():
+        graphs = list(ds.vo.chunk_graph.graphs.values())
+        return graphs[0].replays if graphs else 0
+
+    t0 = time.perf_counter()
+    for i, im in enumerate(frames):
+        on_host, relocs = ds.state is None, ds.n_relocalizations
+        ds.add_image(im, float(i))
+        if ds.n_relocalizations > relocs and "reloc" not in at:
+            at["reloc"] = (i, first_replays(), len(ds.vo.chunk_graph.graphs))
+        if "reloc" in at and on_host and ds.state is not None and "repack" not in at:
+            at["repack"] = (i, first_replays())
+    ds.finish()
+    if ds.device.type == "cuda":
+        torch.cuda.synchronize()
+    return ds, len(frames) / (time.perf_counter() - t0), at, first_replays()
+
+
+def run_long(card: str):
+    """The JAX package's long run on the card (``DeviceSystem`` as it ships:
+    deterministic algorithms, each chunk a replay of its CUDA graph): 300
+    frames with a blackout at 150-158, every gate of
+    ``tests/test_long_sequence.py``, two runs with one digest, and the
+    relocalization re-packed into the chunk graph captured before the
+    blackout. Returns the first run's launches."""
+    from sdvo_tpu_torch.dataio.synthetic import render_long_sequence
+
+    t_phase = time.perf_counter()
+    frames, T_true = render_long_sequence(LONG_FRAMES, LONG_BLACK)
+    t_render = time.perf_counter() - t_phase
+    with LaunchCount() as counts:
+        ds, fps, at, replays_end = drive_long(frames)
+    _require(ds.device.type == "cuda", f"DeviceSystem chose {ds.device}, not the card")
+    gates = long_gates(ds, T_true)
+    _require(all(n > 0 for n in counts.launches.values()), f"a kernel never launched: {counts.launches}")
+    _require(not any(counts.plain_on_cuda.values()), f"plain versions ran on CUDA tensors: {counts.plain_on_cuda}")
+    graphs = vo_graphs(ds.vo)
+    print(f"long run graphs: {graph_line(graphs)}; the first chunk graph replayed {at.get('reloc')} "
+          f"(frame, replays, graphs) at the relocalization, {at.get('repack')} (frame, replays) at the "
+          f"re-pack, {replays_end} at the end", flush=True)
+    _require("reloc" in at and "repack" in at and at["reloc"][1] >= 2
+             and replays_end > at["repack"][1] == at["reloc"][1],
+             "the re-packed state did not go back into the chunk graph captured before the blackout")
+    again, fps_again, _, _ = drive_long(frames)
+    digests = [trajectory_digest(d.trajectory) for d in (ds, again)]
+    _require(digests[0] == digests[1], f"the long run's two graphed runs differ: {digests}")
+    print(f"long run: {LONG_FRAMES} frames (320x240, black {LONG_BLACK.start}-{LONG_BLACK.stop - 1}), "
+          f"{gates['keyframes']} keyframes made, {gates['evicted']} evicted, peak {gates['peak_filters']} filters, "
+          f"{gates['relocalizations']} relocalization(s), failed frames {gates['failed']}, "
+          f"{100 * gates['post_ok']:.1f} % tracked after the blackout, drift {100 * gates['drift_pre']:.3f} % before "
+          f"the blackout and {100 * gates['drift']:.3f} % over the run; frames/s {fps:.2f} and {fps_again:.2f} "
+          f"(the whole run, host frames included); digest {digests[0]} twice; launches {counts.launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s ({t_render:.1f} s rendering; {card})", flush=True)
+    return counts.launches
+
+
+# BASELINE config 2, EuRoC MH_01 at 5 levels: tests/test_euroc.py's overrides
+# and camera; its System over 10 frames of the dolly (seed 11), and
+# DeviceSystem over 2 + 24 frames of the same dolly (the JAX DeviceSystem
+# tracks them on the CPU with no failed frame)
+EUROC_OVERRIDES = {
+    "camera": {"img_width": 752, "img_height": 480},
+    "initialization": {"min_detected_points": 60, "desired_detected_points": 150,
+                       "threshold_gradient_magnitude": 20, "disparity_threshold": 2},
+    "algorithm": {"max_level_image_pyramid": 4, "min_tracked_features": 20, "max_features_per_frame": 160,
+                  "max_reprojection_matches": 96, "max_points": 1024, "max_filters": 256},
+}
+EUROC_SYSTEM_FRAMES = 10
+EUROC_DEVICE_FRAMES = 2 + 24
+EUROC_SEED = 11
+EUROC_LEVELS = 5
+EUROC_SCHEDULE = [4, 4, 6, 8, 10]  # K1's iterations at levels 0-4 on the device path
+
+
+def euroc_config():
+    from sdvo_tpu_torch.config import load_config
+
+    return load_config(overrides=EUROC_OVERRIDES)
+
+
+def euroc_system_gates(system):
+    """``tests/test_euroc.py``'s gates: at least 8 frames SUCCESS or
+    KEYFRAME, more map points at the end than after the bootstrap."""
+    ok = [m for m in system.metrics if m.get("result") in ("SUCCESS", "KEYFRAME")]
+    _require(len(ok) >= 8, f"EuRoC System: {len(ok)} frames tracked")
+    first, last = system.metrics[1].get("n_points", 0), system.metrics[-1].get("n_points", 0)
+    _require(last > first, f"EuRoC System: {last} points at the end, {first} after the bootstrap")
+    return len(ok), first, last
+
+
+def drive_euroc_device(frames, device=None):
+    """``DeviceSystem`` at the EuRoC preset over ``frames`` (chunks of 8
+    supersteps). Returns it and its frames/s after the bootstrap."""
+    import torch
+
+    from sdvo_tpu_torch.dataio.synthetic import EUROC_CAMERA
+    from sdvo_tpu_torch.geometry.camera import PinholeCamera
+    from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
+
+    ds = DeviceSystem(euroc_config(), camera=PinholeCamera.create(**EUROC_CAMERA), device=device,
+                      supersteps_per_chunk=SUPERSTEPS_PER_CHUNK)
+    _track(ds, frames, 0, 2)
+    t0 = time.perf_counter()
+    _track(ds, frames, 2, len(frames))
+    ds.finish()
+    if ds.device.type == "cuda":
+        torch.cuda.synchronize()
+    return ds, (len(frames) - 2) / (time.perf_counter() - t0)
+
+
+def run_euroc(card: str):
+    """BASELINE config 2 on the card: ``System`` as ``tests/test_euroc.py``
+    runs it (752x480, 5 levels, 10 frames) with that test's gates and K1
+    five launches a frame; then ``DeviceSystem`` at the same preset over
+    2 + 24 frames: no failed frame, exact keyframe cadence, K1 five launches
+    a frame at 4/4/6/8/10 iterations (levels 0-4), the chunk graph captured
+    at 5 levels, two graphed runs with one digest. Returns the launches of
+    the ``System`` run and of the first ``DeviceSystem`` run."""
+    import torch
+
+    from sdvo_tpu_torch.dataio.synthetic import EUROC_CAMERA, render_dolly_sequence
+    from sdvo_tpu_torch.geometry.camera import PinholeCamera
+    from sdvo_tpu_torch.pipeline.system import System
+
+    t_phase = time.perf_counter()
+    frames, T_true = render_dolly_sequence(EUROC_CAMERA, EUROC_DEVICE_FRAMES, EUROC_SEED)
+    system = System(euroc_config(), camera=PinholeCamera.create(**EUROC_CAMERA))  # the card by default
+    _require(system.device.type == "cuda", f"System chose {system.device}, not the card")
+    _require(system.num_levels == EUROC_LEVELS, f"System builds {system.num_levels} levels")
+    with LaunchCount() as sys_counts:
+        _track(system, frames, 0, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _track(system, frames, 2, EUROC_SYSTEM_FRAMES)
+        torch.cuda.synchronize()
+        sys_s = time.perf_counter() - t0
+    n_ok, first, last = euroc_system_gates(system)
+    n_tracked = EUROC_SYSTEM_FRAMES - 2
+    _require(sys_counts.launches["lm_align_level"] == EUROC_LEVELS * n_tracked,
+             f"K1 launched {sys_counts.launches['lm_align_level']} times on {n_tracked} frames, not five a frame")
+    _require(not any(sys_counts.plain_on_cuda.values()),
+             f"plain versions ran on CUDA tensors: {sys_counts.plain_on_cuda}")
+    print(f"EuRoC System: {EUROC_SYSTEM_FRAMES} frames at 752x480, {EUROC_LEVELS} levels, {n_ok} tracked, points "
+          f"{first} after the bootstrap and {last} at the end, results "
+          f"{''.join(m['result'][0] for m in system.metrics)}, launches {sys_counts.launches}, frames/s "
+          f"{n_tracked / sys_s:.2f} ({card})", flush=True)
+
+    with LaunchCount() as counts:
+        ds, fps = drive_euroc_device(frames)
+    _require(ds.device.type == "cuda", f"DeviceSystem chose {ds.device}, not the card")
+    steady = ds.metrics[2:]
+    failed = [m["frame"] for m in steady if m["result"] == "FAILED"]
+    n_kf = sum(m["result"] == "KEYFRAME" for m in steady)
+    _require(not failed and ds.n_relocalizations == 0, f"EuRoC DeviceSystem: failed frames {failed}")
+    _require([m["result"] == "KEYFRAME" for m in steady] == [(i + 1) % PER == 0 for i in range(len(steady))],
+             f"EuRoC DeviceSystem: keyframe cadence broken ({n_kf} of {len(steady)})")
+    schedule = [ds.vo.aligner.level_iterations(lv) for lv in range(EUROC_LEVELS)]
+    _require(ds.scfg.levels == EUROC_LEVELS and schedule == EUROC_SCHEDULE,
+             f"EuRoC DeviceSystem: {ds.scfg.levels} levels at {schedule} iterations")
+    n_steady = len(steady)
+    graphs = vo_graphs(ds.vo)
+    warm = warmup_launches(graphs.values())  # the capture's warm-up runs the chunk once more
+    _require(counts.launches["lm_align_level"] - warm["lm_align_level"] == EUROC_LEVELS * n_steady,
+             f"K1 launched {counts.launches['lm_align_level']} times ({warm['lm_align_level']} in the capture's "
+             f"warm-up) on {n_steady} frames, not five a frame")
+    _require(not any(counts.plain_on_cuda.values()), f"plain versions ran on CUDA tensors: {counts.plain_on_cuda}")
+    chunk = SUPERSTEPS_PER_CHUNK * PER
+    want = {k: (EUROC_LEVELS if k == "lm_align_level" else 1) * chunk for k in KERNEL_SYMBOLS}
+    _require("chunk" in graphs and graphs["chunk"].captured_launches == want,
+             f"the EuRoC chunk graph: {graph_line(graphs)}, not {want} a replay")
+    again, fps_again = drive_euroc_device(frames)
+    digests = [trajectory_digest(d.trajectory) for d in (ds, again)]
+    _require(digests[0] == digests[1], f"the EuRoC DeviceSystem's two graphed runs differ: {digests}")
+    ate, path = drift(*_centres_of(ds.trajectory, T_true)[:2])
+    print(f"EuRoC DeviceSystem: {EUROC_DEVICE_FRAMES} frames, no failed frame, {n_kf} keyframes of {n_steady}, "
+          f"K1 at {schedule} iterations (levels 0-4), graphs {graph_line(graphs)}, launches {counts.launches}, "
+          f"scale-aligned ATE {ate:.4f} over a path of {path:.3f} ({100 * ate / path:.2f} %), frames/s {fps:.2f} "
+          f"and {fps_again:.2f} (one chunk of 24 frames and its capture), digest {digests[0]} twice; "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return sys_counts.launches, counts.launches
 
 
 FOUR_OPS = ("sdvo::lm_align_level", "sdvo::fa_align_batch", "sdvo::pose_refine", "sdvo::depth_scores")
@@ -1578,6 +1863,8 @@ def main() -> int:
     run_graph_checks(card, frames)
     launches_host, host_frames = run_host_path(card, frames, T_true)
     run_recovery(card, frames)
+    launches_long = run_long(card)
+    launches_euroc_system, launches_euroc_device = run_euroc(card)
     _, _, eager_ds, eager_fps, _ = run_main_path(card, frames, T_true, "main path, eager loop", eager=True)
     _, _, again_ds, main_fps_again, _ = run_main_path(card, frames, T_true, "main path, second run")
     digests = [trajectory_digest(d.trajectory) for d in (main_ds, again_ds, eager_ds)]
@@ -1609,6 +1896,12 @@ def main() -> int:
         replay = (None if name == K1_HOST_ROW  # the host path runs frame by frame, no graph
                   else multi_replay[base] if name.endswith(f"[S{BATCH}]")
                   else chunk_replay[base] if r["on_path"] else 0)
+        # each kernel's launches in each path's run, counted from 0 just before it
+        by_phase = {phase: counts[base] if r["on_path"] else 0
+                    for phase, counts in (("main", launches), ("host_path", launches_host),
+                                          ("long", launches_long), ("euroc_system", launches_euroc_system),
+                                          ("euroc_device", launches_euroc_device),
+                                          ("multi_seq", launches_multi), ("streaming", launches_stream))}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": n, "launches_per_chunk_replay": replay, "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1616,7 +1909,8 @@ def main() -> int:
                         "device_ms": r["device_ms"], "device_ms_cold": r["device_ms_cold"],
                         "launches_warmup": w, "launches_per_frame": (n - w) / n_path, "on_path": r["on_path"],
                         "launches_host_path": launches_host[base] if r["on_path"] else 0,
-                        "launches_streaming": launches_stream[base] if r["on_path"] else 0})
+                        "launches_streaming": launches_stream[base] if r["on_path"] else 0,
+                        "launches_by_phase": by_phase})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -250,7 +250,7 @@ struct LmProblem {
 template <int kWarps, int S>
 __global__ void __launch_bounds__(kWarps * 32, 1) lm_align_level_kernel(
     LmArgs a, const float* __restrict__ pose_in, float* __restrict__ out_pose,
-    float* __restrict__ out_stats, int max_iters, float min_rel_decrease) {
+    float* __restrict__ out_stats, int max_iters, float min_rel_decrease, bool freeze_sigma) {
   __shared__ BlockShared<kWarps> sm;
   extern __shared__ float feat[];  // (N, 6), then (N, 3) of spots where S > 0
   const size_t problem = blockIdx.x;  // this block's problem of the launch
@@ -277,7 +277,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1) lm_align_level_kernel(
   __syncthreads();
   Block<kWarps> blk(sm);
   const LmProblem<kWarps * 32, S> prob(a);
-  lm_solve(prob, blk, pose_in, out_pose, out_stats, max_iters, min_rel_decrease);
+  lm_solve(prob, blk, pose_in, out_pose, out_stats, max_iters, min_rel_decrease, freeze_sigma);
 }
 
 constexpr int kLmMaxFeatures = 8192;      // 24 bytes each in shared memory
@@ -285,27 +285,30 @@ constexpr int kLmMaxFeaturesKept = 2048;  // and 12 more where the residuals are
 
 template <int kWarps, int S>
 int lm_launch_tier(const LmArgs& a, const float* pose_in, float* out_pose, float* out_stats,
-                   int max_iters, float min_rel_decrease, int n_problems, cudaStream_t stream) {
+                   int max_iters, float min_rel_decrease, bool freeze_sigma, int n_problems,
+                   cudaStream_t stream) {
   static const cudaError_t opted_in = cudaFuncSetAttribute(
       lm_align_level_kernel<kWarps, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kLmMaxFeatures * 6 * (int)sizeof(float));
   if (opted_in != cudaSuccess) return (int)opted_in;
   lm_align_level_kernel<kWarps, S>
       <<<n_problems, kWarps * 32, a.N * (S > 0 ? 9 : 6) * sizeof(float), stream>>>(
-          a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease);
+          a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease, freeze_sigma);
   return (int)cudaGetLastError();
 }
 
 constexpr int kLmWarps = 32;
 
 int lm_launch(const LmArgs& a, const float* pose_in, float* out_pose, float* out_stats,
-              int max_iters, float min_rel_decrease, int n_problems, cudaStream_t stream) {
+              int max_iters, float min_rel_decrease, bool freeze_sigma, int n_problems,
+              cudaStream_t stream) {
   if (a.N > kLmMaxFeatures || n_problems < 1) return (int)cudaErrorInvalidValue;
   if ((long long)a.N * a.patch * a.patch <= kLmSlotsTotal && a.N <= kLmMaxFeaturesKept)
     return lm_launch_tier<kLmWarps, kLmSlotsTotal / (kLmWarps * 32)>(
-        a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease, n_problems, stream);
+        a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease, freeze_sigma, n_problems,
+        stream);
   return lm_launch_tier<kLmWarps, 0>(a, pose_in, out_pose, out_stats, max_iters,
-                                     min_rel_decrease, n_problems, stream);
+                                     min_rel_decrease, freeze_sigma, n_problems, stream);
 }
 
 }  // namespace
@@ -313,14 +316,15 @@ int lm_launch(const LmArgs& a, const float* pose_in, float* out_pose, float* out
 
 // n_problems problems of one shape, each array holding them one after the
 // other (pose_in (S, 3, 4), windows (S, N, WH, WW), ..., out_stats (S, 4)).
+// freeze_sigma != 0: the Tukey cutoff stays at its value at the entry pose.
 extern "C" int sdvo_lm_align_level(const float* pose_in, const float* windows, const float* patches,
                                    const float* J, const float* pts, const float* org,
                                    const float* vis, float fx, float fy, float cx, float cy,
                                    float* out_pose, float* out_stats, int N, int WH, int WW,
                                    int patch, int max_iters, float min_rel_decrease,
-                                   int n_problems, void* stream) {
+                                   int freeze_sigma, int n_problems, void* stream) {
   const sdvo::LmArgs a{windows, patches, J,  pts, org, vis, nullptr, nullptr,
                        fx,      fy,      cx, cy,  N,   WH,  WW,      patch};
   return sdvo::lm_launch(a, pose_in, out_pose, out_stats, max_iters, min_rel_decrease,
-                         n_problems, (cudaStream_t)stream);
+                         freeze_sigma != 0, n_problems, (cudaStream_t)stream);
 }

@@ -387,10 +387,25 @@ __device__ float block_bin_median(Block<kWarps>& blk, const Vals& vals, bool dev
 }
 
 // Tukey cutoff c = 4.6851·max(1.4826·MAD, 1e-12) of the visible values, their
-// chi² under it, and their count (at least 1).
+// chi² under it, and their count (at least 1). With `frozen` c stays as it
+// comes in and only the count and chi² are computed (K1's freeze_sigma).
 template <int kWarps, class Vals>
 __device__ void robust_scale(Block<kWarps>& blk, const Vals& vals, float& c, float& chi,
-                             float& n_vis) {
+                             float& n_vis, bool frozen = false) {
+  if (frozen) {
+    uint32_t n = 0;
+    float ch = 0.f, lo = 0.f, hi = 0.f;
+    for_each_slot(vals, [&](int s) {
+      float x;
+      const bool vis = vals.get(s, x);
+      n += vis;
+      ch += vis ? tukey_weight(x, c) * x * x : 0.f;
+    });
+    blk.count_min_max(n, lo, hi);
+    n_vis = fmaxf((float)n, 1.f);
+    chi = blk.sum(ch);
+    return;
+  }
   uint32_t n = 0;
   float lo = kBig, hi = -kBig;
   for_each_slot(vals, [&](int s) {
@@ -429,11 +444,13 @@ __device__ void robust_scale(Block<kWarps>& blk, const Vals& vals, float& c, flo
 // decrease; ends on a small step, a failed Cholesky, a small relative or
 // predicted decrease, or max_iters. out_stats = [chi, n_vis, iterations, 0].
 // The accepted pose carries its residuals, scale c and chi², so each
-// iteration evaluates one pose: the candidate.
+// iteration evaluates one pose: the candidate. With freeze_sigma the scale of
+// the entry pose weights every candidate (pallas_lm.py:349-354, :380).
 template <int kWarps, class Problem>
 __device__ void lm_solve(const Problem& prob, Block<kWarps>& blk,
                          const float* __restrict__ pose_in, float* __restrict__ out_pose,
-                         float* __restrict__ out_stats, int max_iters, float min_rel_decrease) {
+                         float* __restrict__ out_stats, int max_iters, float min_rel_decrease,
+                         bool freeze_sigma = false) {
   float R[9], t[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -511,8 +528,8 @@ __device__ void lm_solve(const Problem& prob, Block<kWarps>& blk,
     const float pred = blk.sm.step[12], step2 = blk.sm.step[13], lam_eff = blk.sm.step[14];
     const bool okc = blk.sm.step[15] > 0.5f;
     prob.evaluate(R_new, t_new, cand);
-    float c_n, chi_n, n_vis_n;
-    robust_scale(blk, cand, c_n, chi_n, n_vis_n);
+    float c_n = c, chi_n, n_vis_n;
+    robust_scale(blk, cand, c_n, chi_n, n_vis_n, freeze_sigma);
 
     const float rho = (chi - chi_n) / fmaxf(pred, 1e-30f);
     const bool success = (chi - chi_n) > 0.f;

@@ -104,6 +104,22 @@ def render_ridge(texture, cam, T_wc, z_near: float = 8.0, z_far: float = 14.0,
     return img
 
 
+def _se3_exp(tau) -> np.ndarray:
+    """exp of the twist (v, w) as a 4×4 matrix."""
+    from scipy.linalg import expm
+
+    xi = np.zeros((4, 4))
+    xi[:3, :3] = [[0, -tau[5], tau[4]], [tau[5], 0, -tau[3]], [-tau[4], tau[3], 0]]
+    xi[:3, 3] = tau[:3]
+    return expm(xi)
+
+
+class _Pose:
+    def __init__(self, T):
+        self.rotation = T[:3, :3]
+        self.translation = T[:3, 3]
+
+
 KITTI_CAMERA = dict(fx=721.5377, fy=721.5377, cx=609.5593, cy=172.854, width=1241, height=376)
 
 
@@ -113,16 +129,8 @@ def render_bench_sequence(rng, n_frames: int):
     KITTI geometry. Returns (frames, world→camera 4×4 ground-truth poses)."""
     from types import SimpleNamespace
 
-    from scipy.linalg import expm
-
     tex = smooth_texture(rng, size=4096, blur=13)
     cam = SimpleNamespace(**KITTI_CAMERA)
-
-    class _Pose:
-        def __init__(self, T):
-            self.rotation = T[:3, :3]
-            self.translation = T[:3, 3]
-
     frames, T_true = [], []
     for i in range(n_frames):
         # frame 1 takes a lateral baseline for the two-view bootstrap
@@ -131,10 +139,7 @@ def render_bench_sequence(rng, n_frames: int):
             lat, 0.03 * np.sin(4.0 * np.pi * i / 36.0), 0.18 * np.sin(2.0 * np.pi * i / 48.0),
             0.002 * np.sin(2.0 * np.pi * i / 36.0), 0.005 * np.sin(2.0 * np.pi * i / 30.0), 0.0,
         ])
-        xi = np.zeros((4, 4))
-        xi[:3, :3] = [[0, -tau[5], tau[4]], [tau[5], 0, -tau[3]], [-tau[4], tau[3], 0]]
-        xi[:3, 3] = tau[:3]
-        T44 = expm(xi)
+        T44 = _se3_exp(tau)
         T_true.append(T44)
         frames.append(render_ridge(tex, cam, _Pose(T44), z_near=12.0, z_far=18.0, split_x=-1.5,
                                    supersample=1))
@@ -152,6 +157,54 @@ def render_bench_sequences(seeds, n_frames: int):
     return out
 
 
+LONG_CAMERA = dict(fx=320.0, fy=320.0, cx=160.0, cy=120.0, width=320, height=240)
+
+
+def long_sweep_pose(i: float) -> np.ndarray:
+    """World→camera pose of frame ``i`` of the long run's slow figure sweep
+    with turns (``tests/test_long_sequence.py``'s camera path)."""
+    return _se3_exp(np.asarray([
+        0.5 * np.sin(2 * np.pi * i / 120.0), 0.05 * np.sin(2 * np.pi * i / 80.0),
+        0.4 * np.sin(2 * np.pi * i / 150.0), 0.002 * np.sin(2 * np.pi * i / 120.0),
+        0.01 * np.sin(2 * np.pi * i / 100.0), 0.0]))
+
+
+def render_long_sequence(n_frames: int, black, seed: int = 11, poses=None, blur: int = 13):
+    """The long run's scene: a ridge at 8/14 m split at x = 1 under
+    ``smooth_texture(size=3072, blur=blur)`` from ``seed``, 320×240, no
+    supersampling, frames ``black`` all zero. ``poses`` (4×4 each) replace
+    the figure sweep. Returns (float32 frames, world→camera poses)."""
+    from types import SimpleNamespace
+
+    tex = smooth_texture(np.random.default_rng(seed), size=3072, blur=blur)
+    cam = SimpleNamespace(**LONG_CAMERA)
+    T_true = [long_sweep_pose(i) for i in range(n_frames)] if poses is None else list(poses)
+    frames = [np.zeros((cam.height, cam.width), np.float32) if i in black else
+              render_ridge(tex, cam, _Pose(T), z_near=8.0, z_far=14.0, split_x=1.0, supersample=1)
+              .astype(np.float32) for i, T in enumerate(T_true)]
+    return frames, T_true
+
+
+EUROC_CAMERA = dict(fx=458.0, fy=457.0, cx=376.0, cy=240.0, width=752, height=480)
+DOLLY_STEP = (0.12, 0.015, 0.04, 0.0, 0.002, 0.0)  # a frame of the sideways-dominant dolly
+
+
+def render_dolly_sequence(cam: dict, n_frames: int, seed: int, step=DOLLY_STEP):
+    """``tests/test_pipeline_e2e.py::make_sequence``'s scene in the camera
+    ``cam``: a ridge at 8/14 m split at x = 1 under
+    ``smooth_texture(size=3072, blur=13)`` from ``seed``, rendered with 2×
+    supersampling and cut to uint8, the world→camera pose of frame i
+    exp(i·``step``). Returns (uint8 frames, poses)."""
+    from types import SimpleNamespace
+
+    tex = smooth_texture(np.random.default_rng(seed), size=3072, blur=13)
+    c = SimpleNamespace(**cam)
+    T_true = [_se3_exp(np.asarray(step, np.float64) * i) for i in range(n_frames)]
+    frames = [render_ridge(tex, c, _Pose(T), z_near=8.0, z_far=14.0, split_x=1.0).astype(np.uint8)
+              for T in T_true]
+    return frames, T_true
+
+
 def render_plane_track(rng, cam: dict, dtau, n_frames: int, n_features: int, n_filters: int,
                        plane_z: float = 10.0, margin: float = 20.0, tex_size: int = 1024, blur: int = 9,
                        supersample: int = 2):
@@ -166,24 +219,11 @@ def render_plane_track(rng, cam: dict, dtau, n_frames: int, n_features: int, n_f
     float32, ``filter_depth`` (C,) float64 along each bearing to the plane."""
     from types import SimpleNamespace
 
-    from scipy.linalg import expm
-
-    class _Pose:
-        def __init__(self, T):
-            self.rotation = T[:3, :3]
-            self.translation = T[:3, 3]
-
-    def se3_exp(tau):
-        xi = np.zeros((4, 4))
-        xi[:3, :3] = [[0, -tau[5], tau[4]], [tau[5], 0, -tau[3]], [-tau[4], tau[3], 0]]
-        xi[:3, 3] = tau[:3]
-        return expm(xi)
-
     c = SimpleNamespace(**cam)
     W, H = c.width, c.height
     tex = smooth_texture(rng, size=tex_size, blur=blur)
     ref = render_plane(tex, c, _Pose(np.eye(4)), plane_z, supersample=supersample).astype(np.float32)
-    T_true = [se3_exp(np.asarray(dtau, np.float64) * i) for i in range(1, n_frames + 1)]
+    T_true = [_se3_exp(np.asarray(dtau, np.float64) * i) for i in range(1, n_frames + 1)]
     frames = np.stack([render_plane(tex, c, _Pose(T), plane_z, supersample=supersample)
                        for T in T_true]).astype(np.float32)
 

@@ -60,8 +60,10 @@ class ImagePyramid(NamedTuple):
         return self.gradients[0]
 
 
-def build_pyramid(image: torch.Tensor, num_levels: int) -> ImagePyramid:
-    """Intensity and gradient-magnitude pyramids with ``num_levels`` levels."""
+def build_pyramid(image: torch.Tensor, num_levels: int, quantize: bool = False) -> ImagePyramid:
+    """Intensity and gradient-magnitude pyramids with ``num_levels`` levels.
+    ``quantize=True`` rounds every level below the input to the uint8 grid
+    (half to even; the dtype stays), the reference's all-uint8 pyramid."""
     if image.dtype == torch.uint8:
         image = image.to(torch.float32)
     images: List[torch.Tensor] = []
@@ -72,4 +74,7 @@ def build_pyramid(image: torch.Tensor, num_levels: int) -> ImagePyramid:
         grads.append(cur_g)
         cur_i = pyr_down(cur_i)
         cur_g = pyr_down(cur_g)
+        if quantize:
+            cur_i = torch.round(cur_i)
+            cur_g = torch.round(cur_g)
     return ImagePyramid(tuple(images), tuple(grads))

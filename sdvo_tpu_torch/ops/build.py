@@ -44,7 +44,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "sdvo_lm_align_level": [_P] * 7 + [_F] * 4 + [_P] * 2 + [_I] * 5 + [_F, _I, _P],
+    "sdvo_lm_align_level": [_P] * 7 + [_F] * 4 + [_P] * 2 + [_I] * 5 + [_F, _I, _I, _P],
     "sdvo_fa_align": [_P] * 10 + [_I] * 5 + [_F, _F, _P],
     "sdvo_pose_refine": [_P] * 6 + [_I, _I, _F, _I, _P],
     "sdvo_depth_scores": [_P] * 5 + [_I] * 5 + [_P],

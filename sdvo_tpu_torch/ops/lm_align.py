@@ -130,9 +130,12 @@ def pose34(T: SE3) -> torch.Tensor:
 
 
 def _plain(pose, windows, ref_patches, J, points_ref, origins, visible, fx: float, fy: float,
-           cx: float, cy: float, patch: int, max_iters: int, min_rel_decrease: float):
+           cx: float, cy: float, patch: int, max_iters: int, min_rel_decrease: float,
+           freeze_sigma: bool = False):
     """Plain PyTorch K1 (float32) from the pose (3, 4); returns what the
-    kernel writes: (pose (3, 4), stats (4,) = [chi², n_vis, iterations, 0])."""
+    kernel writes: (pose (3, 4), stats (4,) = [chi², n_vis, iterations, 0]).
+    With ``freeze_sigma`` the Tukey cutoff of the entry pose weights every
+    candidate (``pallas_lm.py:349-354,380``)."""
     global plain_cuda_calls
     if windows.is_cuda:
         plain_cuda_calls += 1
@@ -155,17 +158,18 @@ def _plain(pose, windows, ref_patches, J, points_ref, origins, visible, fx: floa
         vis1 = ((base_vis > 0.5) & ok & (p[:, 2] > 1e-6)).to(f32)
         return (vals - patches) * vis1[:, None], vis1
 
-    def weights_chi2(r, vis1):
+    def weights_chi2(r, vis1, c=None):
         vis2 = vis1[:, None].expand(N, P2)
         n_vis = torch.clamp(vis2.sum(), min=1.0)
-        c = 4.6851 * torch.clamp(1.4826 * mad_binned(r, vis2, n_vis), min=1e-12)
+        if c is None:
+            c = 4.6851 * torch.clamp(1.4826 * mad_binned(r, vis2, n_vis), min=1e-12)
         w = tukey(r, c) * vis2
-        return w, torch.sum(w * r * r)
+        return w, torch.sum(w * r * r), c
 
     R = pose[:, :3].contiguous()
     t = pose[:, 3].contiguous()
     r_acc, vis_acc = residuals(R, t)
-    w_acc, chi = weights_chi2(r_acc, vis_acc)
+    w_acc, chi, c0 = weights_chi2(r_acc, vis_acc)
     lam = torch.full((), 1e-2, dtype=f32, device=dev)
     nu = torch.full((), 2.0, dtype=f32, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
@@ -184,7 +188,7 @@ def _plain(pose, windows, ref_patches, J, points_ref, origins, visible, fx: floa
         R_new = R @ dR
         t_new = R @ dt + t
         r_n, vis_n = residuals(R_new, t_new)
-        w_n, chi_n = weights_chi2(r_n, vis_n)
+        w_n, chi_n, _ = weights_chi2(r_n, vis_n, c0 if freeze_sigma else None)
         accept, done_n, lam_next, nu_next = lm_accept(chi, chi_n, dx, g, lam_eff, nu, okc,
                                                       min_rel_decrease)
         accept = accept & active
@@ -209,10 +213,12 @@ def lm_stats(R, t, chi, n_vis, it):
 
 def lm_align_level_plain(T_init: SE3, windows, ref_patches, J, points_ref, origins, visible,
                          fx: float, fy: float, cx: float, cy: float, patch: int = 5,
-                         max_iters: int = 12, min_rel_decrease: float = 1e-3):
+                         max_iters: int = 12, min_rel_decrease: float = 1e-3,
+                         freeze_sigma: bool = False):
     """Plain PyTorch K1 (float32). Returns (T, rmse, iterations)."""
     return lm_result(*_plain(pose34(T_init), windows, ref_patches, J, points_ref, origins, visible,
-                             fx, fy, cx, cy, patch, max_iters, min_rel_decrease), T_init.dtype)
+                             fx, fy, cx, cy, patch, max_iters, min_rel_decrease, freeze_sigma),
+                     T_init.dtype)
 
 
 # ------------------------------------------------------------------- wrapper
@@ -227,7 +233,8 @@ def lm_result(out_pose, out_stats, dtype=torch.float32):
 
 def kernel_launcher(T_init: SE3, windows, ref_patches, J, points_ref, origins, visible,
                     fx: float, fy: float, cx: float, cy: float, patch: int = 5,
-                    max_iters: int = 12, min_rel_decrease: float = 1e-3):
+                    max_iters: int = 12, min_rel_decrease: float = 1e-3,
+                    freeze_sigma: bool = False):
     """Checks the inputs, allocates the outputs and returns (launch, out_pose
     (3, 4), out_stats (4,) = [chi², n_vis, iterations, 0]): ``launch()``
     enqueues the kernel alone, on the current stream, and counts it. With a
@@ -256,7 +263,8 @@ def kernel_launcher(T_init: SE3, windows, ref_patches, J, points_ref, origins, v
     args = (pose.data_ptr(), windows.data_ptr(), ref_patches.data_ptr(), J.data_ptr(),
             points_ref.data_ptr(), origins.data_ptr(), vis.data_ptr(),
             float(fx), float(fy), float(cx), float(cy), out_pose.data_ptr(), out_stats.data_ptr(),
-            N, WH, WW, patch, max_iters, float(min_rel_decrease), lead[0] if lead else 1)
+            N, WH, WW, patch, max_iters, float(min_rel_decrease), int(bool(freeze_sigma)),
+            lead[0] if lead else 1)
     launch = build.launcher(sys.modules[__name__], "lm_align_level", "sdvo_lm_align_level", args, dev,
                             (pose, vis, windows, ref_patches, J, points_ref, origins, out_pose,
                              out_stats))
@@ -276,17 +284,19 @@ def _op_cuda(R, t, *args):
 _op = build.define_op("lm_align_level", "(Tensor R, Tensor t, Tensor windows, Tensor ref_patches, "
                       "Tensor J, Tensor points_ref, Tensor origins, Tensor visible, float fx, "
                       "float fy, float cx, float cy, int patch, int max_iters, "
-                      "float min_rel_decrease) -> (Tensor, Tensor)", _op_cpu, _op_cuda)
+                      "float min_rel_decrease, bool freeze_sigma) -> (Tensor, Tensor)", _op_cpu, _op_cuda)
 
 
 def lm_align_level(T_init: SE3, windows, ref_patches, J, points_ref, origins, visible,
                    fx: float, fy: float, cx: float, cy: float, patch: int = 5,
-                   max_iters: int = 12, min_rel_decrease: float = 1e-3
+                   max_iters: int = 12, min_rel_decrease: float = 1e-3, freeze_sigma: bool = False
                    ) -> Tuple[SE3, torch.Tensor, torch.Tensor]:
     """One LM pyramid level. windows (N, WH, WW), ref_patches (N, P²),
     J (N, P², 6), points_ref (N, 3), origins (N, 2), visible (N,) bool;
-    level-scaled intrinsics. Returns (T, rmse, iterations)."""
+    level-scaled intrinsics. With ``freeze_sigma`` the Tukey cutoff stays at
+    its value at ``T_init`` for the whole level. Returns (T, rmse,
+    iterations)."""
     out_pose, out_stats = _op(T_init.rotation, T_init.translation, windows, ref_patches, J,
                               points_ref, origins, visible, float(fx), float(fy), float(cx), float(cy),
-                              int(patch), int(max_iters), float(min_rel_decrease))
+                              int(patch), int(max_iters), float(min_rel_decrease), bool(freeze_sigma))
     return lm_result(out_pose, out_stats, T_init.dtype)

@@ -295,6 +295,7 @@ L2_BYTES = 50 * 2 ** 20  # the card's L2 cache
 #   H/g: 6 for J·w, 2·27 for the sums, 6 for the weight.
 _SCALE_FLOPS = 3 + 4 * 5 + 3 + 8
 _STAGE_FLOPS = 4 * 16
+_FROZEN_FLOPS = 1 + 8  # count, Tukey weight and chi² under a given cutoff
 _HG_FLOPS = 6 + 2 * 27 + 6
 _BILINEAR_FLOPS = 12  # floor, two fractions, three lerps
 # K2, per pixel. An evaluation (one before the loop, one an iteration): sample,
@@ -338,8 +339,12 @@ def bound_ms(name: str, shapes: Dict[str, int], iterations: int = None) -> Bound
         WH, WW, P2 = shapes["WH"], shapes["WW"], shapes["P2"]
         if base == "lm_align_level":
             nbytes = 4 * (N * (WH * WW + P2 * 7 + 6) + 12 + 12 + 4)
-            per_eval = (N * (_PROJECT_FLOPS + P2 * (_BILINEAR_FLOPS + 1 + _SCALE_FLOPS))
-                        + _STAGE_FLOPS)
+            # with freeze_sigma (``frozen``) a candidate's scale is the entry
+            # pose's: its count, Tukey weight and chi² only
+            frozen = shapes.get("frozen", 0)
+            scale = _FROZEN_FLOPS if frozen else _SCALE_FLOPS
+            per_eval = (N * (_PROJECT_FLOPS + P2 * (_BILINEAR_FLOPS + 1 + scale))
+                        + (0 if frozen else _STAGE_FLOPS))
             flops = (iterations + 1) * per_eval + iterations * N * P2 * _HG_FLOPS
         elif base == "fa_align_batch":
             # the live mask and the converged flag are one byte each
@@ -424,6 +429,18 @@ def extra_problems(device) -> List[Tuple[str, tuple, dict]]:
     return problems
 
 
+FREEZE_LM = "lm_align_level[freeze-"  # the names of K1's problems with freeze_sigma
+
+
+def freeze_problems(device) -> List[Tuple[str, tuple, dict]]:
+    """K1 at the device path's shape and iterations (``kernel_problems``'
+    four levels) with ``freeze_sigma=True``: the Tukey cutoff of the entry
+    pose for the whole level. No path of the port sets it."""
+    T0 = SE3.identity(device=device)
+    return [(f"{FREEZE_LM}L{lv}]", (T0, *args), dict(max_iters=its, min_rel_decrease=2e-3, freeze_sigma=True))
+            for lv, (args, its) in enumerate(lm_problems(device))]
+
+
 def depth_extra_problems(device) -> List[Tuple[str, tuple, dict]]:
     """K4 problems at the shapes its thread mapping makes interesting: one
     filter, a row count that is no multiple of a block's rows, patch 5,
@@ -492,6 +509,8 @@ def problem_shapes(name: str, args: tuple, kw: dict = None) -> Dict[str, int]:
     windows, table = (args[1], args[2]) if base == "lm_align_level" else (args[0], args[1])
     shapes = {"N": windows.shape[0], "WH": windows.shape[1], "WW": windows.shape[2],
               "P2": table.shape[1]}
+    if base == "lm_align_level" and (kw or {}).get("freeze_sigma"):
+        shapes["frozen"] = 1
     if base == "depth_scores":
         patch = math.isqrt(table.shape[1])
         shapes["win_bytes"] = footprint_bytes(args[2], patch, windows.shape[1], windows.shape[2])

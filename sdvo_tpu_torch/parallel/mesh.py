@@ -65,14 +65,25 @@ def make_vo_mesh(num_seq: Optional[int] = None, num_shard: int = 1,
     return VOMesh(grid)
 
 
-def seq_groups(mesh: Optional[VOMesh], n: int, device=None) -> List[Tuple[torch.device, range]]:
-    """The contiguous groups of ``n`` sequences, one per ``seq`` device (sizes
-    differ by at most one; a device with none is left out). Without a mesh,
-    one group on ``device``."""
+def axis_devices(mesh: VOMesh, axis: str) -> List[torch.device]:
+    """The devices along the mesh axis named ``axis``: column 0 of the grid
+    for the first name, row 0 for the second (the other rows or columns
+    replicate them). Raises on a name the mesh lacks."""
+    if axis not in mesh.axis_names:
+        raise ValueError(f"mesh has no axis {axis!r} (its axes: {mesh.axis_names})")
+    return list(mesh.devices[:, 0]) if mesh.axis_names.index(axis) == 0 else list(mesh.devices[0, :])
+
+
+def seq_groups(mesh: Optional[VOMesh], n: int, device=None, mesh_axis: str = "seq"
+               ) -> List[Tuple[torch.device, range]]:
+    """The contiguous groups of ``n`` sequences, one per device of the mesh
+    axis ``mesh_axis`` (sizes differ by at most one; a device with none is
+    left out). Without a mesh, one group on ``device``."""
     if mesh is None:
         return [(torch.device(device) if device is not None else None, range(n))]
-    parts = np.array_split(np.arange(n), len(mesh.seq_devices))
-    return [(d, range(int(p[0]), int(p[-1]) + 1)) for d, p in zip(mesh.seq_devices, parts) if len(p)]
+    devices = axis_devices(mesh, mesh_axis)
+    parts = np.array_split(np.arange(n), len(devices))
+    return [(d, range(int(p[0]), int(p[-1]) + 1)) for d, p in zip(devices, parts) if len(p)]
 
 
 def tree_map(fn, *trees):
@@ -90,18 +101,19 @@ def tree_map(fn, *trees):
 class SeqShards(list):
     """A tree cut along its sequence axis ``axis`` into the groups of
     ``seq_groups``, each on its device: the counterpart of an array sharded
-    over the mesh's 'seq' axis. ``gather`` joins them again."""
+    over a mesh axis ('seq' unless ``split`` names another). ``gather``
+    joins them again."""
 
     def __init__(self, parts, axis: int = 0):
         super().__init__(parts)
         self.axis = axis
 
     @staticmethod
-    def split(tree, mesh: VOMesh, n: int, axis: int = 0) -> "SeqShards":
+    def split(tree, mesh: VOMesh, n: int, axis: int = 0, mesh_axis: str = "seq") -> "SeqShards":
         def cut(d, r):
             return tree_map(lambda x: x.narrow(axis, r.start, len(r)).to(d or x.device), tree)
 
-        return SeqShards([cut(d, r) for d, r in seq_groups(mesh, n)], axis)
+        return SeqShards([cut(d, r) for d, r in seq_groups(mesh, n, mesh_axis=mesh_axis)], axis)
 
     def gather(self, device=None):
         device = device if device is not None else _first_device(self[0])

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from sdvo_tpu_torch.device import deterministic_on, resolve_device
-from sdvo_tpu_torch.parallel.mesh import SeqShards, VOMesh, seq_groups, tree_map
+from sdvo_tpu_torch.parallel.mesh import SeqShards, VOMesh, axis_devices, seq_groups, tree_map
 from sdvo_tpu_torch.pipeline.cuda_graph import GraphedCall
 from sdvo_tpu_torch.pipeline.device_system import DeviceSystem, DeviceVO, FrameOut, VOState
 
@@ -60,7 +60,7 @@ def cusolver_linalg(device: torch.device):
         torch.backends.cuda.preferred_linalg_library(was)
 
 
-def multi_chunk_fn(vo: DeviceVO, mesh: Optional[VOMesh] = None):
+def multi_chunk_fn(vo: DeviceVO, mesh: Optional[VOMesh] = None, axis: str = "seq"):
     """``(stacked VOState, images (C, S, per, H, W)) → (state, outs)``, a
     loop over the chunk's supersteps (as ``DeviceVO.run_chunk``) of
     ``torch.func.vmap(vo.superstep)``. ``outs`` is a FrameOut with leading
@@ -70,9 +70,12 @@ def multi_chunk_fn(vo: DeviceVO, mesh: Optional[VOMesh] = None):
     as the Python loop on any device. Either way the linear algebra runs on
     cuSOLVER on the card (``cusolver_linalg``). With a mesh, ``fn.place(tree,
     images=False)`` cuts a stacked state (``images=True``: the images, along
-    their axis 1) over the 'seq' devices; given such ``SeqShards`` the
-    function runs each group on its device and returns ``SeqShards`` of
-    states and of outputs."""
+    their axis 1) over the devices of the mesh axis named ``axis`` (a name
+    the mesh lacks raises); given such ``SeqShards`` the function runs each
+    group on its device and returns ``SeqShards`` of states and of
+    outputs."""
+    if mesh is not None:
+        axis_devices(mesh, axis)
     superstep = torch.func.vmap(vo.superstep)
 
     def eager(state: VOState, images: torch.Tensor):
@@ -98,7 +101,7 @@ def multi_chunk_fn(vo: DeviceVO, mesh: Optional[VOMesh] = None):
         if mesh is not None:
             def place(tree, images=False):
                 n = tree.shape[1] if images else tree.frame_id.shape[0]
-                return SeqShards.split(tree, mesh, n, axis=1 if images else 0)
+                return SeqShards.split(tree, mesh, n, axis=1 if images else 0, mesh_axis=axis)
 
             run.place = place  # type: ignore[attr-defined]
         return run

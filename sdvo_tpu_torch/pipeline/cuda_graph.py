@@ -25,7 +25,12 @@ card with inputs of a given structure, shapes and types, in a given mode
   kernel library's first build and load, cuBLAS/cuSOLVER handles, the first
   allocations), then once under ``torch.cuda.graph`` on the buffers
   themselves, into a private memory pool. The warm-up never touches the
-  caller's tensors.
+  caller's tensors. Python's cyclic garbage collector runs just before the
+  capture and is off during it: a dead object that holds a CUDA graph (a
+  dropped ``DeviceSystem``: its ``DeviceVO`` and ``GraphedCall`` refer to
+  each other) resets that graph when it is collected, and a reset during a
+  capture invalidates the capture (PyTorch's ``torch.cuda.graph`` no
+  longer collects at its entry).
 * Replay: the inputs are copied into the static buffers, the graph replays,
   and the outputs are copied out of the pool into fresh tensors (``clone``),
   so that nothing handed back aliases memory the next replay overwrites.
@@ -43,6 +48,7 @@ real launches (``Capture.warmup_launches``).
 
 from __future__ import annotations
 
+import gc
 import os
 import time
 import traceback
@@ -137,16 +143,21 @@ class Capture:
         torch.cuda.current_stream(device).wait_stream(side)
         self.warmup_launches = {k: n - before[k] for k, n in _launch_counts().items()}
         torch.cuda.synchronize(device)
+        gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         graph = torch.cuda.CUDAGraph()
         before = _launch_counts()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.device(device), torch.cuda.graph(graph):
                 out = fn(*unflatten(spec, self.static_in))
         except Exception as err:
             raise RuntimeError(f"{name}: CUDA graph capture failed at {_where(err)}: {err}") from err
         finally:
+            if collecting:
+                gc.enable()
             # a capture records launches and makes none
             after = _launch_counts()
             for k, m in build.kernel_modules().items():

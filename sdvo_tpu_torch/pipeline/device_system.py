@@ -52,7 +52,7 @@ from sdvo_tpu_torch.mapping.device_map import (
     reproject_device,
 )
 from sdvo_tpu_torch.ops.pose_refine import pose_refine
-from sdvo_tpu_torch.optim.optimizer import tree_where
+from sdvo_tpu_torch.optim.optimizer import LMSettings, tree_where
 from sdvo_tpu_torch.ops.window_sampler import sample_windows, sample_windows_grad, window_gather
 from sdvo_tpu_torch.pipeline.cuda_graph import GraphedCall
 from sdvo_tpu_torch.pipeline.system import FrameResult, System, SystemStatus
@@ -163,9 +163,19 @@ class DeviceVO:
     """Steady-state VO: superstep + chunk over a ``VOState``. On the card
     ``chunk_graph`` (a chunk of ``chunk_supersteps`` supersteps) and
     ``step_graph`` (one superstep) hold its CUDA graphs, each captured at its
-    first use."""
+    first use. ``align_settings`` (``LMSettings``; None:
+    ``DEFAULT_ALIGN_SETTINGS``) go to the frame step's aligner, which reads
+    what the JAX package's kernel path reads of them: ``max_iterations``
+    (tapered by 2 a level), ``min_rel_decrease`` and the visualization
+    fields."""
 
-    def __init__(self, cam: PinholeCamera, cfg: SuperstepConfig, dtype=torch.float32,
+    # the device path's aligner: a 10-iteration coarse budget, tapered by 2
+    # a level towards the finest, with the relative-decrease exit at 2e-3
+    DEFAULT_ALIGN_SETTINGS = SparseImageAlign.DEFAULT_SETTINGS._replace(max_iterations=10,
+                                                                        min_rel_decrease=2e-3)
+
+    def __init__(self, cam: PinholeCamera, cfg: SuperstepConfig,
+                 align_settings: Optional[LMSettings] = None, dtype=torch.float32,
                  chunk_supersteps: int = 8):
         self.cam = cam
         self.cfg = cfg
@@ -175,9 +185,7 @@ class DeviceVO:
         self.step_graph = GraphedCall(self.superstep, "DeviceVO.superstep")
         self.aligner = SparseImageAlign(
             patch_size=cfg.patch_align, min_level=0, max_level=cfg.levels - 1,
-            settings=SparseImageAlign.DEFAULT_SETTINGS._replace(max_iterations=10,
-                                                                min_rel_decrease=2e-3),
-            level_taper=2)
+            settings=align_settings or self.DEFAULT_ALIGN_SETTINGS, level_taper=2)
 
     # ------------------------------------------------------------ frame step
     def _frame_step(self, state: VOState, image: torch.Tensor, is_kf: bool):

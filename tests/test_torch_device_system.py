@@ -143,8 +143,9 @@ def test_state_round_trip(runs):
 
 def test_port_imports_without_jax():
     """Every module of the port (the CLI, both axes of ``parallel``, ``viz``,
-    ``utils.io``, ``dataio.poses``, ``pipeline.streaming`` and
-    ``image.stack`` included) imports where neither JAX nor
+    ``utils.io``, ``dataio.poses``, ``pipeline.streaming``, ``image.stack``
+    and ``dataio.synthetic`` with the long run's and the EuRoC dolly's
+    scenes included) imports where neither JAX nor
     the JAX package can be imported, and importing them all leaves
     matplotlib and PIL unimported."""
     code = ("import sys; sys.modules['jax'] = None; sys.modules['sdvo_tpu'] = None; "
@@ -157,7 +158,9 @@ def test_port_imports_without_jax():
             "'sdvo_tpu_torch.parallel.distributed', 'sdvo_tpu_torch.viz.overlays', "
             "'sdvo_tpu_torch.viz.plots', 'sdvo_tpu_torch.viz.diagnostics', 'sdvo_tpu_torch.utils.io', "
             "'sdvo_tpu_torch.dataio.poses', 'sdvo_tpu_torch.pipeline.streaming', "
-            "'sdvo_tpu_torch.image.stack'}; assert need <= set(names), need - set(names); "
+            "'sdvo_tpu_torch.image.stack', 'sdvo_tpu_torch.dataio.synthetic'}; "
+            "assert need <= set(names), need - set(names); "
+            "from sdvo_tpu_torch.dataio.synthetic import render_long_sequence, render_dolly_sequence; "
             "import sdvo_tpu_torch.parallel; "
             "assert 'matplotlib' not in sys.modules and 'PIL' not in sys.modules; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -604,3 +604,99 @@ def test_a_mode_flip_captures_its_own_graph():
     assert first.replays == 2 and second.replays == 1
     # the default mode sums by atomics in any order: its own bits, every frame tracked
     assert bool(default[1].ok.all()) and bool(torch.isfinite(default[1].t).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", range(4))
+def test_lm_kernel_freeze_sigma_matches_plain_on_card(level):
+    """K1 with ``freeze_sigma`` (``selfcheck.freeze_problems``, the device
+    path's shape and iterations): the kernel against its plain version, and
+    another solve than the unfrozen one."""
+    dev = _cuda()
+    name, args, kw = selfcheck.freeze_problems(dev)[level]
+    kernel, plain = selfcheck.case_calls(name, args, kw)
+    got = kernel()
+    torch.cuda.synchronize()
+    err, ok = selfcheck.agrees(name, got, plain())
+    assert ok, (name, err)
+    unfrozen = selfcheck.case_calls(name, args, {k: v for k, v in kw.items() if k != "freeze_sigma"})[0]()
+    assert not torch.equal(unfrozen[1], got[1]) or not torch.equal(unfrozen[0].translation, got[0].translation)
+
+
+@pytest.mark.gpu
+def test_long_run_on_the_card():
+    """``chip_smoke.run_long``: the JAX package's long run (300 frames,
+    black 150-158) through ``DeviceSystem`` on the card, every gate of
+    ``tests/test_long_sequence.py``, two graphed runs with one digest, the
+    relocalization re-packed into the chunk graph captured before the
+    blackout."""
+    import chip_smoke
+
+    _cuda()
+    launches = chip_smoke.run_long(selfcheck.card_line())
+    assert all(n > 0 for n in launches.values())
+
+
+@pytest.mark.gpu
+def test_euroc_on_the_card():
+    """``chip_smoke.run_euroc``: BASELINE config 2 at 5 levels, ``System``
+    with ``tests/test_euroc.py``'s gates and K1 five launches a frame, and
+    ``DeviceSystem`` with no failed frame, exact cadence, the 4/4/6/8/10
+    schedule and one digest in two graphed runs."""
+    import chip_smoke
+
+    _cuda()
+    sys_launches, dev_launches = chip_smoke.run_euroc(selfcheck.card_line())
+    assert sys_launches["lm_align_level"] == chip_smoke.EUROC_LEVELS * (chip_smoke.EUROC_SYSTEM_FRAMES - 2)
+    assert dev_launches["lm_align_level"] % chip_smoke.EUROC_LEVELS == 0 and dev_launches["lm_align_level"] > 0
+
+
+@pytest.mark.gpu
+def test_a_graph_collected_during_a_capture_does_not_break_it():
+    """A dropped object that holds a captured graph in a reference cycle (a
+    dropped ``DeviceSystem``: its ``DeviceVO`` and ``GraphedCall`` refer to
+    each other) waits for Python's cyclic collector, which resets the graph.
+    A reset during another capture invalidated that capture (``run_euroc``
+    after ``run_long``'s systems were dropped). Here two such holders become
+    garbage inside the capture, with the collector run at nearly every
+    allocation: the capture holds, and the holders go at the next collection."""
+    import gc
+    import weakref
+
+    from sdvo_tpu_torch.pipeline.cuda_graph import GraphedCall
+
+    dev = _cuda()
+    x = torch.linspace(0.0, 1.0, 4096, device=dev)
+
+    class Holder:
+        pass
+
+    keep = []
+    for _ in range(2):
+        h = Holder()
+        h.me = h
+        h.call = GraphedCall(lambda t: t * 2 + 1, "dropped")
+        h.call(x)
+        keep.append(h)
+    del h
+    gone = [weakref.ref(k) for k in keep]
+    calls = []
+
+    def fn(t):
+        calls.append(1)
+        if len(calls) == 2:  # the capture (the first call is the warm-up): the holders become garbage
+            keep.clear()
+            # objects that live until the capture ends: enough of them that a full
+            # collection falls due (it waits for a quarter of the long-lived objects)
+            _ = [[i] for i in range(500_000)]
+        return (t.sin() * 2).cumsum(0)
+
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        out = GraphedCall(fn, "live")(x)
+    finally:
+        gc.set_threshold(*old)
+    torch.testing.assert_close(out, (x.sin() * 2).cumsum(0))
+    gc.collect()
+    assert all(r() is None for r in gone)

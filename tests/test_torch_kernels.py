@@ -89,22 +89,35 @@ def _lm_problem(seed=0, n_side=(8, 4)):
     return (win_c.numpy(), patches.numpy(), J, pts, org_c.numpy(), vis, fx, fy, cx, cy)
 
 
-def test_lm_align_level_matches_pallas():
+def _lm_against_pallas(freeze_sigma: bool):
+    """K1 and the Pallas kernel on ``_lm_problem`` from the identity, held to
+    the file's tolerances. Returns the port's arguments and rmse."""
     win, patches, J, pts, org, vis, fx, fy, cx, cy = _lm_problem()
+    kw = dict(patch=5, max_iters=10, min_rel_decrease=2e-3, freeze_sigma=freeze_sigma)
     jT, jrmse, jit = j_lm_align_level(
         JSE3(jnp.eye(3, dtype=jnp.float32), jnp.zeros(3, jnp.float32)),
         *(jnp.asarray(a) for a in (win, patches, J, pts, org, vis)),
-        *(jnp.float32(v) for v in (fx, fy, cx, cy)),
-        patch=5, max_iters=10, min_rel_decrease=2e-3, interpret=True,
-    )
-    tT, trmse, tit = lm_align.lm_align_level(
-        SE3.identity(), *(_t(a) for a in (win, patches, J, pts, org, vis)), fx, fy, cx, cy,
-        patch=5, max_iters=10, min_rel_decrease=2e-3,
-    )
+        *(jnp.float32(v) for v in (fx, fy, cx, cy)), interpret=True, **kw)
+    args = (SE3.identity(), *(_t(a) for a in (win, patches, J, pts, org, vis)), fx, fy, cx, cy)
+    tT, trmse, tit = lm_align.lm_align_level(*args, **kw)
     assert int(jit) >= 2 and int(tit) == int(jit)
     np.testing.assert_allclose(tT.rotation.numpy(), np.asarray(jT.rotation), atol=1e-4)
     np.testing.assert_allclose(tT.translation.numpy(), np.asarray(jT.translation), atol=1e-4)
     np.testing.assert_allclose(float(trmse), float(jrmse), rtol=1e-3)
+    return args, trmse
+
+
+def test_lm_align_level_matches_pallas():
+    _lm_against_pallas(False)
+
+
+def test_lm_align_level_freeze_sigma_matches_pallas():
+    """``freeze_sigma=True``: the Tukey cutoff of the entry pose weights the
+    whole level, on both sides. The frozen solve must also end elsewhere
+    than the unfrozen one, or the test would not tell the two modes apart."""
+    args, trmse = _lm_against_pallas(True)
+    _, urmse, _ = lm_align.lm_align_level(*args, patch=5, max_iters=10, min_rel_decrease=2e-3)
+    assert abs(float(urmse) - float(trmse)) > 1e-3 * float(trmse)
 
 
 def _fa_problem(seed=1, n=16):

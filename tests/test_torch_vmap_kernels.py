@@ -44,12 +44,12 @@ def _identities():
             SE3.identity((S,)))
 
 
-def test_vmapped_lm_align_level_matches_vmapped_pallas():
+def _vmapped_lm_against_pallas(freeze_sigma: bool):
     problems = [_lm_problem(seed=s) for s in range(S)]
     arrays = [_stack(problems, k) for k in range(6)]
     fx, fy, cx, cy = problems[0][6:]
     jT0, tT0 = _identities()
-    kw = dict(patch=5, max_iters=10, min_rel_decrease=2e-3)
+    kw = dict(patch=5, max_iters=10, min_rel_decrease=2e-3, freeze_sigma=freeze_sigma)
     jT, jrmse, jit = jax.vmap(lambda T, *a: j_lm_align_level(
         T, *a, f32(fx), f32(fy), f32(cx), f32(cy), interpret=True, **kw))(
             jT0, *map(jnp.asarray, arrays))
@@ -62,6 +62,15 @@ def test_vmapped_lm_align_level_matches_vmapped_pallas():
     np.testing.assert_allclose(trmse.numpy(), np.asarray(jrmse), rtol=1e-3)
     # two different problems: the batch is not one problem twice
     assert np.abs(np.diff(tT.translation.numpy(), axis=0)).max() > 1e-4
+
+
+def test_vmapped_lm_align_level_matches_vmapped_pallas():
+    _vmapped_lm_against_pallas(False)
+
+
+def test_vmapped_lm_align_level_freeze_sigma_matches_vmapped_pallas():
+    """The batching rule hands ``freeze_sigma`` to every problem."""
+    _vmapped_lm_against_pallas(True)
 
 
 def test_vmapped_fa_align_batch_matches_vmapped_pallas():
