@@ -123,16 +123,18 @@ class _Pose:
 KITTI_CAMERA = dict(fx=721.5377, fy=721.5377, cx=609.5593, cy=172.854, width=1241, height=376)
 
 
-def render_bench_sequence(rng, n_frames: int):
+def render_bench_sequence(rng, n_frames: int, start: int = 0):
     """The scene of ``bench.py`` (``render_sequence``): a ridge at 12/18 m
     under a bounded forward+lateral trajectory with KITTI-scale motion, at
-    KITTI geometry. Returns (frames, world→camera 4×4 ground-truth poses)."""
+    KITTI geometry. Returns (frames, world→camera 4×4 ground-truth poses) of
+    frames ``start`` to ``n_frames`` − 1: the texture comes from ``rng``, a
+    frame's pose from its index alone."""
     from types import SimpleNamespace
 
     tex = smooth_texture(rng, size=4096, blur=13)
     cam = SimpleNamespace(**KITTI_CAMERA)
     frames, T_true = [], []
-    for i in range(n_frames):
+    for i in range(start, n_frames):
         # frame 1 takes a lateral baseline for the two-view bootstrap
         lat = 0.15 if i == 1 else 0.30 * np.sin(2.0 * np.pi * i / 36.0)
         tau = np.asarray([
@@ -146,14 +148,50 @@ def render_bench_sequence(rng, n_frames: int):
     return frames, T_true
 
 
-def render_bench_sequences(seeds, n_frames: int):
+_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+def _render_bench_slice(task):
+    seed, start, stop = task
+    frames, T_true = render_bench_sequence(np.random.default_rng(seed), stop, start)
+    return [f.astype(np.float32) for f in frames], T_true
+
+
+def render_bench_sequences(seeds, n_frames, processes: int = 1):
     """``render_bench_sequence`` for each texture seed (the camera path is the
-    same), as float32 frames, one after the other in this process. Returns a
-    list of (frames, ground-truth poses)."""
-    out = []
-    for seed in seeds:
-        frames, T_true = render_bench_sequence(np.random.default_rng(seed), n_frames)
-        out.append(([f.astype(np.float32) for f in frames], T_true))
+    same), as float32 frames; ``n_frames`` is one length for all or one a
+    seed. With ``processes`` > 1 the frames are rendered in that many spawned
+    processes, each sequence cut into slices of consecutive frames (each
+    slice draws its seed's texture again), with the bits of one process.
+    Returns a list of (frames, ground-truth poses)."""
+    lengths = [n_frames] * len(seeds) if isinstance(n_frames, int) else list(n_frames)
+    if processes <= 1:
+        return [_render_bench_slice((seed, 0, n)) for seed, n in zip(seeds, lengths)]
+    import concurrent.futures
+    import multiprocessing
+    import os
+
+    step = max(1, -(-sum(lengths) // processes))
+    tasks = [(k, (seed, lo, min(lo + step, n))) for k, (seed, n) in enumerate(zip(seeds, lengths))
+             for lo in range(0, n, step)]
+    # one BLAS/OpenMP thread a process (the processes are the parallelism),
+    # set before they start: a spawned process reads these at its first import
+    saved = {k: os.environ.get(k) for k in _THREAD_VARS}
+    os.environ.update({k: "1" for k in _THREAD_VARS})
+    try:
+        with concurrent.futures.ProcessPoolExecutor(processes,
+                                                    mp_context=multiprocessing.get_context("spawn")) as pool:
+            parts = list(pool.map(_render_bench_slice, [t for _, t in tasks]))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = [([], []) for _ in seeds]
+    for (k, _), (frames, T_true) in zip(tasks, parts):
+        out[k][0].extend(frames)
+        out[k][1].extend(T_true)
     return out
 
 

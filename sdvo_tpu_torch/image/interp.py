@@ -56,13 +56,15 @@ def patch_offsets(patch_size: int, dtype=torch.float32, device=None) -> torch.Te
     return torch.stack([dx.reshape(-1), dy.reshape(-1)], dim=-1)
 
 
-def padded_patch_and_gradients(image: torch.Tensor, centers: torch.Tensor, patch_size: int):
-    """One (P+2)² bilinear patch per feature on ``image``; returns the P² patch,
-    its central-difference gradients and the all-inside flag."""
+def padded_patch_and_gradients(sample_fn, centers: torch.Tensor, patch_size: int):
+    """One (P+2)² bilinear patch per feature through ``sample_fn`` (uv
+    (N, (P+2)², 2) → (values (N, (P+2)²), ok), e.g. a closure over
+    ``bilinear_sample(image, ·)``); returns the P² patch, its central-difference
+    gradients and the all-inside flag."""
     P = patch_size
     K = P + 2
     offs = patch_offsets(K, dtype=centers.dtype, device=centers.device)
-    vals, ok = bilinear_sample(image, centers[:, None, :] + offs[None])
+    vals, ok = sample_fn(centers[:, None, :] + offs[None])
     N = vals.shape[0]
     big = vals.reshape(N, K, K)
     patch = big[:, 1:-1, 1:-1]

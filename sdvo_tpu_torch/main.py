@@ -9,8 +9,8 @@ Writes KITTI-format poses (``out.txt``) and per-frame metrics
 The frame loop runs through the device-resident ``DeviceSystem``;
 ``--host-system`` selects the per-frame host ``System``. Both run on the CUDA
 card and refuse to start without one; ``--cpu`` asks for the CPU (the
-kernels' plain versions). ``--f64`` computes in float64 and is honoured by
-the host ``System`` only: the device path is float32.
+kernels' plain versions). ``--f64`` computes in float64 on either path (the
+kernels compute in float32 inside and hand back float64).
 
 Usage:  python -m sdvo_tpu_torch.main [config.json] [--images DIR] [--output DIR]
         [--max-frames N] [--cpu] [--host-system] [--euroc SEQ_DIR] [--chunk N]
@@ -39,11 +39,9 @@ def main(argv=None):
                         help="EuRoC ASL sequence dir (mav0): reads images + sensor.yaml")
     parser.add_argument("--chunk", type=int, default=8,
                         help="supersteps per device dispatch (device path)")
-    parser.add_argument("--f64", action="store_true", help="float64 compute (host System only)")
+    parser.add_argument("--f64", action="store_true", help="float64 compute")
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
-    if args.f64 and not args.host_system:
-        parser.error("--f64 needs --host-system: the device path is float32")
 
     import torch
 

@@ -146,7 +146,9 @@ _op = build.define_op("pose_refine", "(Tensor R, Tensor t, Tensor points_w, Tens
 def pose_refine(T_init: SE3, points_w, bearings, valid, max_iters: int = 8,
                 min_rel_decrease: float = 1e-3) -> Tuple[SE3, torch.Tensor, torch.Tensor]:
     """Pose-only LM. points_w (N, 3), bearings (N, 3), valid (N,) bool.
-    Returns (T, rmse, iterations)."""
-    out_pose, out_stats = _op(T_init.rotation, T_init.translation, points_w, bearings, valid,
+    Computes in float32 and returns (T in ``T_init``'s dtype, rmse,
+    iterations)."""
+    f32 = torch.float32
+    out_pose, out_stats = _op(T_init.rotation, T_init.translation, points_w.to(f32), bearings.to(f32), valid,
                               int(max_iters), float(min_rel_decrease))
     return lm_result(out_pose, out_stats, T_init.dtype)

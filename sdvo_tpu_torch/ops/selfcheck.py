@@ -29,7 +29,7 @@ from scipy.linalg import expm
 
 from sdvo_tpu_torch.dataio.synthetic import render_plane, smooth_texture
 from sdvo_tpu_torch.geometry.se3 import SE3
-from sdvo_tpu_torch.image.interp import padded_patch_and_gradients
+from sdvo_tpu_torch.image.interp import bilinear_sample, padded_patch_and_gradients
 from sdvo_tpu_torch.image.pyramid import abs_gradient_saturated_sum, build_pyramid
 from sdvo_tpu_torch.ops import build, depth_scores, fa_align, lm_align, pose_refine
 from sdvo_tpu_torch.ops.window_sampler import sample_windows_grad, window_gather
@@ -114,7 +114,8 @@ def fa_problem(device, n: int = 150, width: int = 1241, height: int = 376, seed:
     gcur = abs_gradient_saturated_sum(torch.from_numpy(cur))
     rng = np.random.default_rng(seed)
     uv_ref = rng.uniform(40, [width - 40, height - 40], size=(n, 2)).astype(np.float32)
-    table, gx, gy, ok = padded_patch_and_gradients(gref, torch.from_numpy(uv_ref), patch)
+    table, gx, gy, ok = padded_patch_and_gradients(lambda q: bilinear_sample(gref, q), torch.from_numpy(uv_ref),
+                                                   patch)
     uv_init = torch.from_numpy((uv_ref + rng.normal(0, 0.5, size=(n, 2))).astype(np.float32))
     win, org, ok_w = window_gather(gcur, uv_init, 24)
     if edge:

@@ -6,11 +6,14 @@ fixed-shape tensors: one *superstep* is ``keyframe_every_n`` frames, the last
 of which adds the keyframe program (feature insertion, depth-seed
 promotion, re-detection, windowed Schur BA, eviction). Shapes are fixed and
 the superstep never reads a device value on the host, so on the card a chunk
-runs as a CUDA graph (``pipeline.cuda_graph``), the counterpart of the
-reference's ``chunk_fn`` (a ``jax.jit`` of ``lax.scan``): one graph for a
-whole chunk of ``chunk_supersteps`` supersteps, and one of a single superstep
-replayed for any other count. On the CPU a chunk is the Python loop
-(``run_chunk_eager``).
+runs as a CUDA graph (``pipeline.cuda_graph``): ``chunk_fn(n)``, as the
+reference's (a ``jax.jit`` of ``lax.scan``), gives the chunk of ``n``
+supersteps, one graph for each ``n``; ``run_chunk`` replays the graph of
+``chunk_supersteps`` supersteps, and one of a single superstep for any other
+count. On the CPU a chunk is the Python loop (``run_chunk_eager``).
+
+The state is in the compute dtype (float32, or float64 on either device);
+the kernels compute in float32 inside and hand back the caller's dtype.
 
 Per frame the four hand-written kernels run: K1 four times (one per
 pyramid level, ``align_precomputed``), K2 once (``reproject_device``), K3
@@ -41,7 +44,7 @@ from sdvo_tpu_torch.features.detection import detect_gradient_by_value
 from sdvo_tpu_torch.geometry.camera import PinholeCamera
 from sdvo_tpu_torch.geometry.essential import topk_stable
 from sdvo_tpu_torch.geometry.se3 import SE3
-from sdvo_tpu_torch.image.interp import padded_patch_and_gradients
+from sdvo_tpu_torch.image.interp import bilinear_sample, padded_patch_and_gradients
 from sdvo_tpu_torch.image.pyramid import build_pyramid
 from sdvo_tpu_torch.mapping.device_map import (
     DeviceMap,
@@ -161,13 +164,13 @@ def _in_border(p, uv, W, H, b=8):
 
 class DeviceVO:
     """Steady-state VO: superstep + chunk over a ``VOState``. On the card
-    ``chunk_graph`` (a chunk of ``chunk_supersteps`` supersteps) and
-    ``step_graph`` (one superstep) hold its CUDA graphs, each captured at its
-    first use. ``align_settings`` (``LMSettings``; None:
-    ``DEFAULT_ALIGN_SETTINGS``) go to the frame step's aligner, which reads
-    what the JAX package's kernel path reads of them: ``max_iterations``
-    (tapered by 2 a level), ``min_rel_decrease`` and the visualization
-    fields."""
+    ``chunk_graph`` (a chunk: one graph for each number of supersteps that
+    ``chunk_fn`` or ``run_chunk`` gave it) and ``step_graph`` (one superstep)
+    hold its CUDA graphs, each captured at its first use. ``align_settings``
+    (``LMSettings``; None: ``DEFAULT_ALIGN_SETTINGS``) go to the frame step's
+    aligner, which reads what the JAX package's kernel path reads of them:
+    ``max_iterations`` (tapered by 2 a level), ``min_rel_decrease`` and the
+    visualization fields."""
 
     # the device path's aligner: a 10-iteration coarse budget, tapered by 2
     # a level towards the finest, with the relative-decrease exit at 2e-3
@@ -183,6 +186,7 @@ class DeviceVO:
         self.chunk_supersteps = chunk_supersteps
         self.chunk_graph = GraphedCall(self.run_chunk_eager, "DeviceVO.chunk")
         self.step_graph = GraphedCall(self.superstep, "DeviceVO.superstep")
+        self._chunk_fns = {}
         self.aligner = SparseImageAlign(
             patch_size=cfg.patch_align, min_level=0, max_level=cfg.levels - 1,
             settings=align_settings or self.DEFAULT_ALIGN_SETTINGS, level_taper=2)
@@ -494,15 +498,32 @@ class DeviceVO:
             outs.append(out)
         return state, FrameOut(*[torch.stack(x) for x in zip(*outs)])
 
+    def chunk_fn(self, n_supersteps: int):
+        """The chunk of ``n_supersteps`` supersteps: (state, images
+        (n_supersteps, period, H, W)) → (state, FrameOut with
+        (n_supersteps, period) axes), the same callable for equal
+        ``n_supersteps``. On the card every call replays the CUDA graph of
+        ``chunk_graph`` captured for these shapes (at the first call); the
+        state and outputs are fresh tensors. On the CPU ``run_chunk_eager``."""
+        if n_supersteps not in self._chunk_fns:
+            def run(state, images):
+                if images.shape[0] != n_supersteps:
+                    raise ValueError(f"chunk_fn({n_supersteps}) given {images.shape[0]} supersteps")
+                if images.device.type != "cuda":
+                    return self.run_chunk_eager(state, images)
+                return self.chunk_graph(state, images)
+            self._chunk_fns[n_supersteps] = run
+        return self._chunk_fns[n_supersteps]
+
     def run_chunk(self, state: VOState, images: torch.Tensor):
         """images (C, period, H, W) → (state, FrameOut with (C, period) axes).
-        On the card a replay of the captured chunk when C is
-        ``chunk_supersteps``, else C replays of the captured superstep; the
-        state and outputs are fresh tensors. On the CPU ``run_chunk_eager``."""
+        On the card ``chunk_fn(C)`` when C is ``chunk_supersteps``, else C
+        replays of the captured superstep; the state and outputs are fresh
+        tensors. On the CPU ``run_chunk_eager``."""
         if images.device.type != "cuda":
             return self.run_chunk_eager(state, images)
         if images.shape[0] == self.chunk_supersteps:
-            return self.chunk_graph(state, images)
+            return self.chunk_fn(self.chunk_supersteps)(state, images)
         outs = []
         for c in range(images.shape[0]):
             state, out = self.step_graph(state, images[c])
@@ -544,8 +565,11 @@ class DeviceSystem:
     frame in ``RELOCALIZATION`` until tracking is healthy and the reference
     frame is a keyframe again, and ``_pack`` re-enters the device path.
 
-    ``ransac_uniforms`` and ``seed`` go to the host ``System``. ``device``
-    defaults to the CUDA card and raises where there is none;
+    ``config.compute_dtype`` sets the dtype of the host ``System`` and of the
+    device state (float32 or float64, as the reference's ``--f64``); frames
+    are buffered in float32 and handed to a chunk in that dtype, as the
+    reference does. ``ransac_uniforms`` and ``seed`` go to the host
+    ``System``. ``device`` defaults to the CUDA card and raises where there is none;
     ``device="cpu"`` asks for the CPU (the kernels' plain versions). On the
     card every chunk runs with PyTorch's deterministic algorithms
     (``device.deterministic_on``): the bundle adjustment's float
@@ -561,8 +585,6 @@ class DeviceSystem:
         self.config = config
         self.device = resolve_device(device)
         cfg_a = config.algorithm
-        if config.compute_dtype != "float32":
-            raise ValueError("the port's device path is float32")
         if cfg_a.max_reprojection_matches + max_promote > cfg_a.max_features_per_frame:
             raise ValueError("alignment feature set must hold matches + promoted candidates")
         self.host = System(config, camera, seed, device=self.device, ransac_uniforms=ransac_uniforms)
@@ -580,7 +602,8 @@ class DeviceSystem:
             grad_threshold=float(config.initialization.threshold_gradient_magnitude),
             ba_presolve=cfg_a.ba_structure_presolve if ba_presolve is None else ba_presolve,
         )
-        self.vo = DeviceVO(self.camera, self.scfg, chunk_supersteps=supersteps_per_chunk)
+        self.dtype = self.host.dtype
+        self.vo = DeviceVO(self.camera, self.scfg, dtype=self.dtype, chunk_supersteps=supersteps_per_chunk)
         self.supersteps_per_chunk = supersteps_per_chunk
         self.state: Optional[VOState] = None
         self.trajectory: List[Optional[np.ndarray]] = []
@@ -598,17 +621,19 @@ class DeviceSystem:
         sys_ = self.host
         a = sys_.arena
         dev = self.device
-        f32, i32 = torch.float32, torch.int32
+        dtype, i32 = self.dtype, torch.int32
         K, F, P = a.max_keyframes, a.max_features_per_kf, a.max_points
         P2 = a.align_patch_size ** 2
 
-        def t(x, dtype=f32):
-            return torch.as_tensor(np.asarray(x), device=dev).to(dtype)
+        def t(x, to=dtype):
+            return torch.as_tensor(np.asarray(x), device=dev).to(to)
 
-        kf_img0 = torch.zeros((K, sys_.height, sys_.width), dtype=f32, device=dev)
+        # keyframe images and patch tables through float32, as the reference packs them
+        f32 = torch.float32
+        kf_img0 = torch.zeros((K, sys_.height, sys_.width), dtype=dtype, device=dev)
         for s in a.keyframe_slots():
             if a.kf_pyramids[s] is not None:
-                kf_img0[s] = a.kf_pyramids[s].base_image.to(f32)
+                kf_img0[s] = a.kf_pyramids[s].base_image.to(f32).to(dtype)
         m = DeviceMap(
             kf_R=t(a.kf_pose[:, :3, :3]), kf_t=t(a.kf_pose[:, :3, 3]), kf_valid=t(a.kf_valid, torch.bool),
             kf_frame_id=t(a.kf_frame_id, i32), kf_counter=t(a.kf_counter, i32), kf_img0=kf_img0,
@@ -622,7 +647,7 @@ class DeviceSystem:
         # from its host keyframe's gradient image
         bank = sys_.filters
         C = bank.mu.shape[0]
-        fa = [torch.zeros((C, P2), dtype=f32, device=dev) for _ in range(3)]
+        fa = [torch.zeros((C, P2), dtype=dtype, device=dev) for _ in range(3)]
         fa_ok = torch.zeros((C,), dtype=torch.bool, device=dev)
         valid_np = bank.valid.cpu().numpy()
         kf_slots = bank.kf_slot.cpu().numpy()
@@ -630,14 +655,15 @@ class DeviceSystem:
             if not a.kf_valid[s] or a.kf_pyramids[s] is None:
                 continue
             rows = torch.as_tensor(np.nonzero(valid_np & (kf_slots == s))[0], device=dev)
-            *tabs, ok = padded_patch_and_gradients(a.kf_pyramids[s].base_gradient, bank.uv_ref[rows],
+            grad = a.kf_pyramids[s].base_gradient
+            *tabs, ok = padded_patch_and_gradients(lambda q: bilinear_sample(grad, q), bank.uv_ref[rows],
                                                    sys_.config.algorithm.patch_size_feature_alignment)
             for tab, val in zip(fa, tabs):
-                tab[rows] = val.to(f32)
+                tab[rows] = val.to(f32).to(dtype)
             fa_ok[rows] = ok
         filt = DeviceFilters(bank=bank, fa_patch=fa[0], fa_gx=fa[1], fa_gy=fa[2], fa_ok=fa_ok,
                              pending=torch.zeros((C,), dtype=torch.bool, device=dev),
-                             pend_mu=torch.zeros((C,), dtype=f32, device=dev))
+                             pend_mu=torch.zeros((C,), dtype=dtype, device=dev))
 
         # tracking reference = the host's reference frame (the newest keyframe)
         ref_rec = sys_.ref_frame
@@ -651,7 +677,7 @@ class DeviceSystem:
         val &= p_ref[:, 2] > 1e-3
         feats = AlignFeatures(uv_host=t(uv), host_idx=torch.zeros(F, dtype=i32, device=dev),
                               points_ref=t(p_ref), valid=t(val, torch.bool))
-        pyr_imgs = tuple(x.to(f32) for x in ref_rec.pyramid.images)
+        pyr_imgs = tuple(x.to(dtype) for x in ref_rec.pyramid.images)
         tabs = self.vo.aligner.precompute_ref_windows(pyr_imgs, feats, self.camera.fx, self.camera.fy)
         ref = TrackRef(pyr_images=pyr_imgs, T_ref_w=SE3(t(T_ref[:3, :3]), t(T_ref[:3, 3])),
                        ref_slot=t(ref_rec.kf_slot, i32), feats=feats,
@@ -753,7 +779,8 @@ class DeviceSystem:
         imgs = np.stack(self._buffer[:n]).reshape(n_supersteps, per, *self._buffer[0].shape)
         self._buffer = self._buffer[n:]
         with deterministic_on(self.device):
-            self.state, outs = self.vo.run_chunk(self.state, torch.as_tensor(imgs, device=self.device))
+            self.state, outs = self.vo.run_chunk(self.state, torch.as_tensor(imgs, dtype=self.dtype,
+                                                                              device=self.device))
         self._emit(FrameOut(*[x.cpu().numpy() for x in outs]),
                    n if n_real_tail is None else (n - per + n_real_tail))
         if bool(self.state.failed):

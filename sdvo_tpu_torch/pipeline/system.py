@@ -62,7 +62,7 @@ from sdvo_tpu_torch.device import deterministic_on, resolve_device
 from sdvo_tpu_torch.features.detection import FeatureSelection
 from sdvo_tpu_torch.geometry.camera import PinholeCamera, build_undistort_maps
 from sdvo_tpu_torch.geometry.se3 import SE3
-from sdvo_tpu_torch.image.interp import extract_patches, padded_patch_and_gradients
+from sdvo_tpu_torch.image.interp import bilinear_sample, extract_patches, padded_patch_and_gradients
 from sdvo_tpu_torch.image.pyramid import ImagePyramid, build_pyramid
 from sdvo_tpu_torch.mapping.arena import ARENA_KEYS, MapArena
 from sdvo_tpu_torch.mapping.device_map import PointType
@@ -634,7 +634,7 @@ class System:
         """Reference patch + gradients on a keyframe's gradient image for new
         observations (cached in the arena)."""
         patch, gx, gy, ok = padded_patch_and_gradients(
-            pyramid.base_gradient, self._tensor(uv).reshape(-1, 2),
+            lambda q: bilinear_sample(pyramid.base_gradient, q), self._tensor(uv).reshape(-1, 2),
             self.config.algorithm.patch_size_feature_alignment,
         )
         f32 = np.float32

@@ -20,6 +20,7 @@ from sdvo_tpu.geometry import camera as j_camera
 from sdvo_tpu.geometry import robust as j_robust
 from sdvo_tpu.geometry import se3 as j_se3
 from sdvo_tpu.geometry import triangulation as j_triangulation
+from sdvo_tpu.image import interp as j_interp
 from sdvo_tpu.image.pyramid import build_pyramid as j_build_pyramid
 from sdvo_tpu.mapping.device_map import DeviceMap as JDeviceMap
 from sdvo_tpu.ops import window_sampler as j_window_sampler
@@ -29,6 +30,7 @@ from sdvo_tpu_torch.dataio.synthetic import smooth_texture
 from sdvo_tpu_torch.depth import epipolar
 from sdvo_tpu_torch.features import detection, ssc
 from sdvo_tpu_torch.geometry import camera, robust, se3, triangulation
+from sdvo_tpu_torch.image import interp
 from sdvo_tpu_torch.image.pyramid import abs_gradient_saturated_sum, build_pyramid
 from sdvo_tpu_torch.mapping.device_map import DeviceMap
 from sdvo_tpu_torch.ops import window_sampler
@@ -307,6 +309,37 @@ def test_detection_helpers_match_jax(helper):
         assert 0 < _np(got[2]).sum() < len(_np(got[2]))
     else:
         assert ssc.have_native() == j_ssc.have_native() is True
+
+
+# ------------------------------------------------------------------ interp
+@pytest.mark.parametrize("sampler", ["bilinear_sample", "unclamped", "shifted"])
+def test_padded_patch_and_gradients_samplers_match_jax(sampler):
+    """``padded_patch_and_gradients(sample_fn, centers, P)`` with three
+    samplers: the callers' closure over ``bilinear_sample``, the unclamped
+    ``bilinear_sample`` (centres near the border, where its corners wrap or
+    give NaN: NaNs must stand where JAX has them) and ``bilinear_sample`` of
+    the image moved by a sub-pixel shift."""
+    rng = np.random.default_rng(5)
+    img = smooth_texture(rng, size=64, blur=5)[:48, :56] * 255.0
+    c = np.concatenate([rng.uniform(6, [50, 42], (12, 2)), rng.uniform(-2, 3, (4, 2)),
+                        rng.uniform([52, 44], [57, 49], (4, 2))])
+    shift = np.asarray([0.37, -1.21])
+    fns = {
+        "bilinear_sample": (lambda q: interp.bilinear_sample(_t(img), q),
+                            lambda q: j_interp.bilinear_sample(jnp.asarray(img), q)),
+        "unclamped": (lambda q: interp.bilinear_sample(_t(img), q, clamp=False),
+                      lambda q: j_interp.bilinear_sample(jnp.asarray(img), q, clamp=False)),
+        "shifted": (lambda q: interp.bilinear_sample(_t(img), q + _t(shift)),
+                    lambda q: j_interp.bilinear_sample(jnp.asarray(img), q + jnp.asarray(shift))),
+    }[sampler]
+    got = interp.padded_patch_and_gradients(fns[0], _t(c), 5)
+    want = j_interp.padded_patch_and_gradients(fns[1], jnp.asarray(c), 5)
+    for a, b in zip(got[:3], want[:3]):
+        _close(a, b)
+    np.testing.assert_array_equal(_np(got[3]), np.asarray(want[3]))
+    assert 0 < _np(got[3]).sum() < len(c)
+    if sampler == "unclamped":
+        assert np.isnan(_np(got[0])).any()
 
 
 # ---------------------------------------------------------- device system

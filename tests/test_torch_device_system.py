@@ -132,6 +132,42 @@ def test_two_supersteps_track_like_reference(runs):
     assert ate_rmse(ct, gt) < 0.05
 
 
+@pytest.mark.parametrize("n", [1, 2])
+def test_chunk_fn_matches_eager_and_jax(runs, n):
+    """``DeviceVO.chunk_fn(n)`` from the JAX bootstrap state (converted):
+    the same callable for equal ``n``, bit for bit ``run_chunk_eager`` on the
+    CPU, and against the JAX ``chunk_fn(n)`` from the same state the same
+    results and keyframes, camera centres within 2 % of the path length
+    (as above) and the same counters."""
+    jds, tds, j_boot, _, _ = runs
+    _, images, _ = make_sequence(np.random.default_rng(7), n_frames=2 + 3 * n)
+    imgs = np.stack([np.asarray(im, np.float32) for im in images[2:]]).reshape(n, 3, *images[0].shape)
+    fn = tds.vo.chunk_fn(n)
+    assert fn is tds.vo.chunk_fn(n) and fn is not tds.vo.chunk_fn(3 - n)
+    state0 = vo_state_from_numpy(j_boot, device="cpu")
+    got = fn(state0, torch.from_numpy(imgs))
+    eager = tds.vo.run_chunk_eager(state0, torch.from_numpy(imgs))
+    for a, b in zip(jax.tree_util.tree_leaves(to_numpy(got)), jax.tree_util.tree_leaves(to_numpy(eager))):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError):
+        fn(state0, torch.from_numpy(imgs[:0]))
+    j_state, j_out = jax.device_get(jds.vo.chunk_fn(n)(jax.tree_util.tree_map(jnp.asarray, j_boot),
+                                                       jnp.asarray(imgs)))
+    t_state, t_out = to_numpy(got)
+    assert t_out.ok.shape == (n, 3) and t_out.ok.all() and j_out.ok.all()
+    np.testing.assert_array_equal(t_out.is_kf, j_out.is_kf)
+    centres = lambda R, t: -np.einsum("...ji,...j->...i", R, t).reshape(-1, 3)  # noqa: E731
+    cj, ct = centres(j_out.R, j_out.t), centres(t_out.R, t_out.t)
+    T1 = j_boot.ref.T_ref_w
+    c1 = -np.asarray(T1.rotation).T @ np.asarray(T1.translation)
+    path = float(np.sum(np.linalg.norm(np.diff(np.concatenate([c1[None], cj]), axis=0), axis=-1)))
+    gap = np.linalg.norm(ct - cj, axis=-1).max()
+    assert gap < 0.02 * path, (gap, path)
+    for f in ("kf_valid", "kf_counter", "kf_frame_id"):
+        np.testing.assert_array_equal(getattr(t_state.map, f), getattr(j_state.map, f), err_msg=f)
+    assert int(t_state.frame_id) == int(j_state.frame_id) == 2 + 3 * n
+
+
 def test_state_round_trip(runs):
     """``vo_state_from_numpy`` ∘ ``to_numpy`` keeps every field and dtype."""
     _, tds, _, _, _ = runs

@@ -456,6 +456,63 @@ def test_graphed_run_chunk_matches_the_eager_loop():
 
 
 @pytest.mark.gpu
+def test_chunk_fn_replays_one_graph_for_each_length():
+    """``DeviceVO.chunk_fn(n)`` for n = 1, 2, 3 on the card: the same
+    callable for equal n, one graph of ``chunk_graph`` for each n, replayed
+    at its second call, each chunk bit for bit the eager loop's from the
+    same state."""
+    from sdvo_tpu_torch.device import deterministic_on
+
+    _cuda()
+    ds, (chunk,) = _bootstrapped_on_card(supersteps=3, n_chunks=1)
+    vo = ds.vo
+    with deterministic_on(ds.device):
+        for n in (1, 2, 3):
+            fn = vo.chunk_fn(n)
+            assert fn is vo.chunk_fn(n)
+            first, again = fn(ds.state, chunk[:n]), fn(ds.state, chunk[:n])
+            eager = vo.run_chunk_eager(ds.state, chunk[:n])
+            torch.cuda.synchronize()
+            assert _same_bits(first, eager) and _same_bits(again, eager), n
+    graphs = list(vo.chunk_graph.graphs.values())
+    assert not vo.step_graph.graphs and [g.replays for g in graphs] == [2, 2, 2]
+    assert [g.captured_launches["depth_scores"] for g in graphs] == [3, 6, 9]
+
+
+@pytest.mark.gpu
+def test_device_system_in_float64_on_the_card():
+    """``compute_dtype="float64"`` on the card: a float64 state whose chunks
+    replay their CUDA graph (the kernels compute in float32 inside), the
+    same trajectory bits in two runs, and the main path's gates (no failed
+    frame, keyframe cadence, ATE < 0.10 m, drift < 1.5 %) over 2 + 12
+    frames in chunks of two supersteps."""
+    import chip_smoke
+    from sdvo_tpu_torch.config import load_config
+    from sdvo_tpu_torch.dataio.synthetic import render_bench_sequences
+    from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
+
+    _cuda()
+    frames, T_true = render_bench_sequences((0,), 2 + 2 * 6)[0]
+
+    def run():
+        ds = DeviceSystem(load_config(overrides=BENCH_OVERRIDES).replace(compute_dtype="float64"),
+                          supersteps_per_chunk=2)
+        for i, f in enumerate(frames):
+            ds.add_image(f, float(i))
+        ds.finish()
+        return ds
+
+    a, b = run(), run()
+    assert a.device.type == "cuda"
+    assert a.state.map.pt_pos.dtype == a.state.ref.T_ref_w.translation.dtype == torch.float64
+    (graph,) = a.vo.chunk_graph.graphs.values()
+    assert graph.replays == 2 and not a.vo.step_graph.graphs
+    assert chip_smoke.trajectory_digest(a.trajectory) == chip_smoke.trajectory_digest(b.trajectory)
+    *_, broken = chip_smoke.tracking_gates(a.metrics, a.trajectory, T_true)
+    assert broken is None, broken
+
+
+@pytest.mark.gpu
 def test_graphed_chunk_hands_back_no_alias():
     """A state kept from chunk 1 is unchanged after chunk 2 has replayed: the
     graph hands back copies, not its static buffers."""

@@ -25,7 +25,7 @@ from sdvo_tpu.ops.pallas_pose import pose_refine as j_pose_refine
 
 from sdvo_tpu_torch.dataio.synthetic import render_plane, smooth_texture
 from sdvo_tpu_torch.geometry.se3 import SE3
-from sdvo_tpu_torch.image.interp import padded_patch_and_gradients
+from sdvo_tpu_torch.image.interp import bilinear_sample, padded_patch_and_gradients
 from sdvo_tpu_torch.image.pyramid import abs_gradient_saturated_sum
 from sdvo_tpu_torch.ops import depth_scores, fa_align, lm_align, pose_refine, selfcheck
 from sdvo_tpu_torch.ops.window_sampler import sample_windows_grad, window_gather
@@ -126,7 +126,7 @@ def _fa_problem(seed=1, n=16):
     gcur = abs_gradient_saturated_sum(_t(cur))
     rng = np.random.default_rng(seed)
     uv_ref = rng.uniform(40, [280, 200], size=(n, 2)).astype(np.float32)
-    patch, gx, gy, ok = padded_patch_and_gradients(gref, _t(uv_ref), 5)
+    patch, gx, gy, ok = padded_patch_and_gradients(lambda q: bilinear_sample(gref, q), _t(uv_ref), 5)
     uv_init = (uv_ref + rng.normal(0, 0.5, size=(n, 2))).astype(np.float32)
     win, org, ok_w = window_gather(gcur, _t(uv_init), 24)
     live = (ok & ok_w).numpy()

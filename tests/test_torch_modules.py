@@ -216,7 +216,7 @@ def test_interp_matches_jax(rng):
     from sdvo_tpu.image.interp import padded_patch_and_gradients as j_padded
 
     jt = j_padded(lambda q: j_bilinear(jnp.asarray(img), q), jnp.asarray(c), 5)
-    tt = padded_patch_and_gradients(_t(img), _t(c), 5)
+    tt = padded_patch_and_gradients(lambda q: bilinear_sample(_t(img), q), _t(c), 5)
     for a, b in zip(tt, jt):
         np.testing.assert_allclose(_np(a), np.asarray(b), atol=1e-9)
 
@@ -498,7 +498,8 @@ def _map_problem(seed=8, K=4, F=48, P=64):
         feat_uv[k, :n] = uv[rows]
         feat_point[k, :n] = rows
         feat_valid[k, :n] = True
-        p, gx, gy, ok = padded_patch_and_gradients(grads[k], _t(uv[rows].astype(np.float32)), 5)
+        p, gx, gy, ok = padded_patch_and_gradients(lambda q: bilinear_sample(grads[k], q),
+                                                   _t(uv[rows].astype(np.float32)), 5)
         for tab, val in zip(tabs, (p, gx, gy)):
             tab[k, :n] = _np(val)
         feat_ok[k, :n] = _np(ok)

@@ -566,11 +566,6 @@ def test_cli_writes_poses_and_metrics_on_cpu(frames, tmp_path, path_flags, capsy
     assert ("system summary" in said) if path_flags == ["--host-system"] else ("8/8 frames tracked" in said)
 
 
-def test_cli_refuses_f64_on_the_device_path(tmp_path):
-    with pytest.raises(SystemExit):
-        cli.main([str(tmp_path / "none.json"), "--cpu", "--f64"])
-
-
 def test_cli_host_system_in_float64(frames, tmp_path):
     """``--f64 --host-system``: the kernels' functions stay float32, the
     rest computes in float64; ``--max-frames`` cuts the run to five frames,

@@ -25,6 +25,14 @@ Each package's run is time-boxed (``--budget-s``, checked at every frame)
 and the process's resident memory is capped (``--max-rss-gb``, polled every
 second): a run over either prints how far it got and the tool goes on with
 the next. Not a tier-1 test: a seed takes minutes.
+
+``--long`` runs the JAX package's long run instead (``tests/
+test_long_sequence.py``: its 300 frames at 320×240 from its own
+``_render_long``, black 150-158, its configuration, x64 on as its tests
+run it) through both packages, the port given the same frames and the JAX
+run's RANSAC draws, and prints each run's drift (scale-aligned ATE over the
+path length) before the blackout and over the whole run, as that test
+computes them, then the frame-by-frame comparison.
 """
 
 import argparse
@@ -89,7 +97,10 @@ def main() -> int:
     ap.add_argument("--budget-s", type=float, default=900.0, help="seconds a package's run may take")
     ap.add_argument("--x64", action="store_true", help="the JAX side with float64 on, as its tests run")
     ap.add_argument("--own-draws", action="store_true", help="the port with its own RANSAC draws")
+    ap.add_argument("--long", action="store_true", help="the long run of tests/test_long_sequence.py")
     args = ap.parse_args()
+    if args.long:
+        args.x64 = True
     if args.x64:
         jax.config.update("jax_enable_x64", True)
     _watch_memory(args.max_rss_gb)
@@ -106,37 +117,57 @@ def main() -> int:
 
     torch.set_num_threads(min(4, os.cpu_count() or 1))
     overrides = {"initialization": {"disparity_threshold": 3, "threshold_gradient_magnitude": 20}}
+    t_config = chip_smoke.bench_config()
+    j_kw = t_kw = dict(supersteps_per_chunk=chip_smoke.SUPERSTEPS_PER_CHUNK)
+    if args.long:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        import test_long_sequence
+        from sdvo_tpu.geometry.camera import PinholeCamera as JCamera
+        from sdvo_tpu_torch.dataio.synthetic import LONG_CAMERA
+        from sdvo_tpu_torch.geometry.camera import PinholeCamera
+
+        overrides, t_config = chip_smoke.LONG_OVERRIDES, chip_smoke.long_config()
+        j_kw = dict(chip_smoke.LONG_KW, camera=JCamera.create(**LONG_CAMERA, dtype=jnp.float64))
+        t_kw = dict(chip_smoke.LONG_KW, camera=PinholeCamera.create(**LONG_CAMERA))
+        args.seeds = "11"  # the test's texture
     for seed in [int(s) for s in args.seeds.split(",")]:
         t0 = time.perf_counter()
-        frames, T_true = render_bench_sequence(np.random.default_rng(seed), args.frames)
-        frames = [f.astype(np.float32) for f in frames]
+        if args.long:
+            _, frames, T_true = test_long_sequence._render_long(np.random.default_rng(seed))
+        else:
+            frames, T_true = render_bench_sequence(np.random.default_rng(seed), args.frames)
+        frames = [np.asarray(f, np.float32) for f in frames]
         print(json.dumps({"seed": seed, "rendered_s": time.perf_counter() - t0}), flush=True)
         runs = {}
         for pkg in ("jax", "port"):
             if pkg == "jax":
-                ds = JDeviceSystem(j_load_config(overrides=overrides),
-                                   supersteps_per_chunk=chip_smoke.SUPERSTEPS_PER_CHUNK)
+                ds = JDeviceSystem(j_load_config(overrides=overrides), **j_kw)
             elif args.own_draws:
-                ds = DeviceSystem(chip_smoke.bench_config(), supersteps_per_chunk=chip_smoke.SUPERSTEPS_PER_CHUNK,
-                                  device="cpu")
+                ds = DeviceSystem(t_config, device="cpu", **t_kw)
             else:
                 # the JAX System's RANSAC draws for its bootstrap (seed 0: the
                 # first split of PRNGKey(0)), over the port's frame-0 features
-                probe = JSystem(j_load_config(overrides=overrides))
+                probe = JSystem(j_load_config(overrides=overrides), camera=j_kw.get("camera"))
                 probe.add_image(frames[0], 0.0)
                 _, sub = jax.random.split(jax.random.PRNGKey(0))
                 n_feat = len(probe.ref_frame.feat_uv)
                 hyp = probe.config.initialization.ransac_hypotheses
                 uniforms = np.asarray(jax.random.uniform(sub, (hyp, n_feat), dtype=jnp.float64 if args.x64
                                                          else jnp.float32), np.float64)
-                ds = DeviceSystem(chip_smoke.bench_config(), supersteps_per_chunk=chip_smoke.SUPERSTEPS_PER_CHUNK,
-                                  device="cpu", ransac_uniforms=uniforms)
+                ds = DeviceSystem(t_config, device="cpu", ransac_uniforms=uniforms, **t_kw)
             seconds, fed, whole = _drive(ds, frames, args.budget_s)
             line = {"seed": seed, "package": pkg, "seconds": seconds, "frames_fed": fed,
                     "frames_done": len(ds.trajectory), "finished": whole, "x64": args.x64,
                     "port_draws": "own" if args.own_draws else "jax",
                     "rss_gb": _rss_gb()}
-            if whole:
+            if whole and args.long:
+                est, gt, idx = chip_smoke._centres_of(ds.trajectory, T_true)
+                pre = idx < chip_smoke.LONG_BLACK.start
+                (ate_pre, path_pre), (ate, path) = chip_smoke.drift(est[pre], gt[pre]), chip_smoke.drift(est, gt)
+                line.update(failed_frames=[m["frame"] for m in ds.metrics if m["result"] == "FAILED"],
+                            relocalizations=ds.n_relocalizations, drift_before_blackout=ate_pre / path_pre,
+                            drift=ate / path, ate_m=ate, path_m=path)
+            elif whole:
                 failed, n_kf, n, ate, path, drift, broken = chip_smoke.tracking_gates(
                     ds.metrics, ds.trajectory, T_true)
                 line.update(failed_frames=failed, keyframes=n_kf, frames=n, ate_m=ate, path_m=path,
@@ -152,7 +183,7 @@ def main() -> int:
         path = float(np.sum(np.linalg.norm(np.diff(ca[ok], axis=0), axis=-1)))
         apart = np.linalg.norm(ca - cb, axis=-1)
         first_result = next((i for i in range(n) if res_a[i] != res_b[i]), None)
-        first_apart = next((i for i in range(n) if not apart[i] <= 0.01 * path), None)
+        first_apart = next((i for i in range(n) if apart[i] > 0.01 * path), None)  # a frame failed in both is not apart
         print(json.dumps({"seed": seed, "compared_frames": n, "first_result_differs": first_result,
                           "first_frame_centres_over_1pct_of_path": first_apart,
                           "max_centre_distance_m": float(np.nanmax(apart)) if n else None,
