@@ -757,3 +757,114 @@ def test_a_graph_collected_during_a_capture_does_not_break_it():
     torch.testing.assert_close(out, (x.sin() * 2).cumsum(0))
     gc.collect()
     assert all(r() is None for r in gone)
+
+
+def _tools():
+    """The repository's root and ``tools/`` on the path, for the measurement
+    entry points."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for path in (os.path.join(root, "tools"), root):
+        if path not in sys.path:
+            sys.path.insert(0, path)
+
+
+@pytest.mark.gpu
+def test_bench_protocol_on_the_card():
+    """``bench_torch.run_protocol`` at its shortest (chunks of one superstep,
+    a warm-up chunk and one group of two) on the card: one chunk graph
+    replayed once a chunk, finite gate values, its pool reported; and the
+    proxy of the baseline builds and runs on the card's machine."""
+    import tempfile
+
+    import numpy as np
+
+    _tools()
+    import bench_torch
+    from sdvo_tpu_torch.dataio.synthetic import render_bench_sequence
+    from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
+
+    _cuda()
+    frames, T_true = render_bench_sequence(np.random.default_rng(0), 2 + 3 * 3)
+    ds = DeviceSystem(bench_torch.bench_config(), supersteps_per_chunk=1)
+    res = bench_torch.run_protocol(ds, frames, T_true, supersteps=1, groups=1, timed=2)
+    (graph,) = ds.vo.chunk_graph.graphs.values()
+    assert graph.replays == 3 and res["pool_bytes"] == graph.pool_bytes > 0
+    assert res["frames"] == 9 and res["failed_frames"] == 0 and res["keyframes"] == 3
+    assert np.isfinite([res["ate_m"], res["drift"]] + res["fps_chunks"]).all()
+    with tempfile.TemporaryDirectory() as tmp:
+        (fps,) = bench_torch.run_proxy(bench_torch.build_proxy(tmp), runs=1)
+    assert fps > 0
+
+
+@pytest.mark.gpu
+def test_bench_multiseq_on_the_card():
+    """``bench_multiseq_torch`` at its shortest (S = 2, chunks of one
+    superstep, a warm-up and one timed chunk) on the card: the JAX tool's
+    gates hold, and the aggregate is S times the per-sequence rate."""
+    import numpy as np
+
+    _tools()
+    import bench_multiseq_torch
+    from bench_torch import bench_config
+    from sdvo_tpu_torch.dataio.synthetic import render_bench_sequences
+    from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
+
+    _cuda()
+    # texture 1 bootstraps on frame 2 on the card: the tool's slack of frames
+    seqs = [r[0] for r in render_bench_sequences((0, 1), 2 + 2 * 3 + bench_multiseq_torch.BOOT_SLACK)]
+    subs = bench_multiseq_torch.bootstrap(seqs, lambda: DeviceSystem(bench_config(), supersteps_per_chunk=1))
+    res = bench_multiseq_torch.run(subs, seqs, 1, 1)
+    assert res["broken"] is None and res["pool_bytes"] > 0
+    assert res["per_seq_fps"] * 2 == res["value"] and np.isfinite(res["value"])
+
+
+@pytest.mark.gpu
+def test_profile_system_on_the_card():
+    """``profile_system_torch`` at its shortest (2 chained calls a graph, one
+    timed replay) on the card: every stage timed, each launching the port's
+    kernels as the frame step does (``chip_smoke.PROFILE_OWN``)."""
+    import numpy as np
+
+    _tools()
+    import chip_smoke
+    import profile_system_torch
+    from sdvo_tpu_torch.dataio.synthetic import render_bench_sequence
+    from sdvo_tpu_torch.device import deterministic_on
+
+    _cuda()
+    frames, _ = render_bench_sequence(np.random.default_rng(0), profile_system_torch.N_FRAMES)
+    ds, image = profile_system_torch.setup(frames, None)
+    with deterministic_on(ds.device):
+        rows = profile_system_torch.profile(ds.vo, ds.state, image, reps=2, replays=1)
+    for r in rows:
+        assert r["ms"] > 0 and r["kernels"] > 0, r
+        assert tuple(r["own"][k] for k in chip_smoke.KERNEL_SYMBOLS) == chip_smoke.PROFILE_OWN[r["stage"]], r
+
+
+@pytest.mark.gpu
+def test_profile_ablate_on_the_card():
+    """``profile_ablate_torch`` at its shortest (chunks of one superstep, one
+    timed call) on the card: every ablation captured and timed, each
+    launching the port's kernels as ``chip_smoke.ABLATE_OWN`` says, and no
+    stub left behind."""
+    import numpy as np
+
+    _tools()
+    import chip_smoke
+    import profile_ablate_torch
+    from sdvo_tpu_torch.dataio.synthetic import render_bench_sequence
+    from sdvo_tpu_torch.device import deterministic_on
+
+    _cuda()
+    frames, _ = render_bench_sequence(np.random.default_rng(0), 2 + 3 * 3)
+    originals = [vars(ns)[a] for ts in profile_ablate_torch.ablations().values() for ns, a, _ in ts]
+    ds, state, chunk = profile_ablate_torch.setup(frames, None, supersteps=1)
+    with deterministic_on(ds.device):
+        rows = profile_ablate_torch.run_ablations(ds.vo, state, chunk, 1, replays=1)
+    assert [vars(ns)[a] for ts in profile_ablate_torch.ablations().values() for ns, a, _ in ts] == originals
+    for r in rows:
+        assert r["ms_frame"] > 0, r
+        assert tuple(r["own_frame"][k] for k in chip_smoke.KERNEL_SYMBOLS) == chip_smoke.ABLATE_OWN[r["run"]], r
