@@ -53,7 +53,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    same scene with the same gates, and asserts that K1 launched four times a
    frame, K2 and K4 launched, K3 did not (this path polishes with
    ``optimize_pose``), no plain version ran on a CUDA tensor and the windowed
-   BA solved on a keyframe; prints its frames/s and ``Timers`` report.
+   BA solved on a keyframe; prints its frames/s and ``Timers`` report (the
+   port's tracer on for that run).
 6. Checkpoint: saves that ``System``, loads the file into a fresh one and
    tracks three more frames.
 7. Failure and recovery: ``DeviceSystem`` on the same scene with one
@@ -724,10 +725,11 @@ def run_host_path(card: str, frames, T_true):
     import torch
 
     from sdvo_tpu_torch.pipeline.system import FrameResult, System
+    from sdvo_tpu_torch.utils.timing import TRACER
 
     system = System(bench_config())  # the card by default
     _require(system.device.type == "cuda", f"System chose {system.device}, not the card")
-    with LaunchCount() as counts:
+    with LaunchCount() as counts, TRACER.recording():
         _track(system, frames, 0, 2)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1123,10 +1125,21 @@ def run_euroc(card: str):
 FOUR_OPS = ("sdvo::lm_align_level", "sdvo::fa_align_batch", "sdvo::pose_refine", "sdvo::depth_scores")
 
 
-def _multi_fps(ms):
+def _joint_chunks(ms, seqs, run):
+    """``run(seqs)`` (a phase of ``ms``) with the port's tracer on; returns
+    its result and the seconds of each joint chunk (the tracer's
+    ``multi_seq.chunk`` spans)."""
+    from sdvo_tpu_torch.utils.timing import TRACER
+
+    with TRACER.recording() as tracer:
+        out = run(seqs)
+    return out, [s.end - s.start for s in tracer.closed() if s.name == "multi_seq.chunk"]
+
+
+def _multi_fps(ms, chunk_seconds):
     """(aggregate, per-sequence) frames/s of the joint chunks after the first."""
-    timed = ms.chunk_seconds[1:]
-    _require(len(timed) >= 2, f"{len(ms.chunk_seconds)} joint chunks, fewer than three")
+    timed = chunk_seconds[1:]
+    _require(len(timed) >= 2, f"{len(chunk_seconds)} joint chunks, fewer than three")
     agg = len(timed) * SUPERSTEPS_PER_CHUNK * PER * ms.n_seq / sum(timed)
     return agg, agg / ms.n_seq
 
@@ -1145,7 +1158,7 @@ def run_multi_seq(card: str, seqs, T_true, main_ds, main_fps: float, main_fps_ag
     ms.bootstrap(seqs)
     t_boot = time.perf_counter() - t0
     with LaunchCount() as counts, vmap_fallbacks() as fallbacks:
-        ms.joint(seqs)
+        _, chunk_seconds = _joint_chunks(ms, seqs, ms.joint)
     timed = _joint_times(ms, seqs)
     results = ms.tail(seqs)
     steps = ms.frame_steps
@@ -1177,14 +1190,14 @@ def run_multi_seq(card: str, seqs, T_true, main_ds, main_fps: float, main_fps_ag
     _require(not any(counts.plain_on_cuda.values()),
              f"plain versions ran on CUDA tensors: {counts.plain_on_cuda}")
     _require(not fallbacks & set(FOUR_OPS), f"vmap looped over the batch for {fallbacks & set(FOUR_OPS)}")
-    agg, per_seq = _multi_fps(ms)
+    agg, per_seq = _multi_fps(ms, chunk_seconds)
 
     eager = MultiSequenceSystem(bench_config(), len(seqs), supersteps_per_chunk=SUPERSTEPS_PER_CHUNK)
     eager.chunk_fn = eager.chunk_fn.eager
-    eager_res = eager.run(seqs)
+    eager_res, eager_seconds = _joint_chunks(eager, seqs, eager.run)
     same = all(np.array_equal(np.asarray(a["trajectory"]), np.asarray(b["trajectory"]))
                for a, b in zip(results, eager_res))
-    agg_eager, _ = _multi_fps(eager)
+    agg_eager, _ = _multi_fps(eager, eager_seconds)
     print(f"multi-sequence, joint chunks as the eager loop: {'the same' if same else 'DIFFERENT'} trajectory "
           f"bits as through the graph; {agg_eager:.2f} aggregate frames/s against the graph's {agg:.2f} ({card}); "
           f"a joint chunk at S = {len(seqs)}, host ms a frame step / device-busy ms a frame step / idle share: "
@@ -1192,10 +1205,10 @@ def run_multi_seq(card: str, seqs, T_true, main_ds, main_fps: float, main_fps_ag
     _require(same, "the graphed joint chunks and the eager loop gave different trajectories")
 
     one = MultiSequenceSystem(bench_config(), 1, supersteps_per_chunk=SUPERSTEPS_PER_CHUNK)
-    one_res = one.run(seqs[:1])
+    one_res, one_seconds = _joint_chunks(one, seqs[:1], one.run)
     _require([m["result"] for m in one_res[0]["metrics"]] == main_res,
              "MultiSequenceSystem at S = 1 and the main path disagree on a frame's result")
-    agg1, _ = _multi_fps(one)
+    agg1, _ = _multi_fps(one, one_seconds)
     print(f"multi-sequence frames/s ({card}; joint chunks of {SUPERSTEPS_PER_CHUNK * PER} frame steps, "
           f"two timed after one warm-up): S = {len(seqs)}: {agg:.2f} aggregate, {per_seq:.2f} a sequence; "
           f"S = 1: {agg1:.2f}; the main path (DeviceSystem): {main_fps:.2f} and {main_fps_again:.2f} in "

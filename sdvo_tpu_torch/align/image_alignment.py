@@ -131,20 +131,23 @@ class SparseImageAlign:
                           fx: float, fy: float, cx: float, cy: float
                           ) -> Tuple[SE3, torch.Tensor]:
         """Coarse-to-fine alignment; per level: project → gather current
-        windows → K1. Returns (T_cur_ref, rmse of the finest level)."""
+        windows → K1. Returns (T_cur_ref, rmse of the finest level, K1's
+        iterations at each level: int32 (levels,), index ``level −
+        min_level``)."""
         t_patches, t_J, t_vis = tables
         T = T_init
         rmse = torch.zeros((), dtype=feats.points_ref.dtype, device=feats.points_ref.device)
+        iters = [None] * (self.max_level - self.min_level + 1)
         for level in range(self.max_level, self.min_level - 1, -1):
             li = level - self.min_level
             uv0 = self._project_level(T, feats, fx, fy, cx, cy, level)
             win_cur, org_c, ok_oc = window_gather(cur_pyramid[level], uv0, self.window)
-            T, rmse, _ = self._run_level(T, win_cur, t_patches[li], t_J[li], feats, org_c,
-                                         t_vis[li] & ok_oc, fx, fy, cx, cy, level)
+            T, rmse, iters[li] = self._run_level(T, win_cur, t_patches[li], t_J[li], feats, org_c,
+                                                 t_vis[li] & ok_oc, fx, fy, cx, cy, level)
             if self.settings.visualize:
                 self._emit_diagnostics(T, win_cur, t_patches[li], t_J[li], feats, org_c,
                                        t_vis[li] & ok_oc, fx, fy, cx, cy, level)
-        return T, rmse
+        return T, rmse, torch.stack(iters)
 
     def align(self, T_init: SE3, host_pyramid: Sequence[torch.Tensor],
               cur_pyramid: Sequence[torch.Tensor], feats: AlignFeatures,

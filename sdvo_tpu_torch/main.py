@@ -12,6 +12,12 @@ card and refuse to start without one; ``--cpu`` asks for the CPU (the
 kernels' plain versions). ``--f64`` computes in float64 on either path (the
 kernels compute in float32 inside and hand back float64).
 
+The host path logs its stage timers (``System.timers``, spans of the port's
+tracer ``utils.timing.TRACER``, which it turns on). On the device path
+``-v`` turns the tracer on and logs the same report over every span: the
+buffering, each dispatch's stack, copy in, graph replay and emission, the
+bootstrap, and the graphs' warm-ups.
+
 Usage:  python -m sdvo_tpu_torch.main [config.json] [--images DIR] [--output DIR]
         [--max-frames N] [--cpu] [--host-system] [--euroc SEQ_DIR] [--chunk N]
         [--f64] [-v]
@@ -53,6 +59,7 @@ def main(argv=None):
     from sdvo_tpu_torch.pipeline.device_system import DeviceSystem
     from sdvo_tpu_torch.pipeline.system import FrameResult, System
     from sdvo_tpu_torch.utils.logging import configure_logging, get_logger, write_metrics_jsonl
+    from sdvo_tpu_torch.utils.timing import TRACER
 
     configure_logging(level=logging.DEBUG if args.verbose else logging.INFO)
     log = get_logger("Main")
@@ -89,39 +96,42 @@ def main(argv=None):
         files = files[: args.max_frames]
 
     device = "cpu" if args.cpu else None  # None: the card, or an error where there is none
-    if args.host_system:
-        system = System(config, camera=camera, device=device)
-    else:
-        system = DeviceSystem(config, camera=camera, supersteps_per_chunk=args.chunk, device=device)
-    log.info("processing %d frames from %s [%s on %s]", len(files), args.euroc or image_dir,
-             type(system).__name__, system.device)
+    with TRACER.recording(args.host_system or args.verbose):
+        if args.host_system:
+            system = System(config, camera=camera, device=device)
+        else:
+            system = DeviceSystem(config, camera=camera, supersteps_per_chunk=args.chunk, device=device)
+        log.info("processing %d frames from %s [%s on %s]", len(files), args.euroc or image_dir,
+                 type(system).__name__, system.device)
 
-    t0 = time.perf_counter()
-    for i, path in enumerate(files):
-        img = load_image_grayscale(path)
-        ts = float(stamps[i]) if stamps is not None else float(i)
-        result = system.add_image(img, ts)
-        if result == FrameResult.FAILED:
-            log.warning("frame %d (%s): FAILED", i, os.path.basename(path))
-        elif args.verbose and result is not None:
-            log.debug("frame %d: %s", i, result.name)
-    if isinstance(system, DeviceSystem):
-        system.finish()
-    wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i, path in enumerate(files):
+            img = load_image_grayscale(path)
+            ts = float(stamps[i]) if stamps is not None else float(i)
+            result = system.add_image(img, ts)
+            if result == FrameResult.FAILED:
+                log.warning("frame %d (%s): FAILED", i, os.path.basename(path))
+            elif args.verbose and result is not None:
+                log.debug("frame %d: %s", i, result.name)
+        if isinstance(system, DeviceSystem):
+            system.finish()
+        wall = time.perf_counter() - t0
 
-    pose_path = os.path.join(out_dir, "out.txt")
-    system.write_poses(pose_path)
-    write_metrics_jsonl(os.path.join(out_dir, "metrics.jsonl"), system.metrics)
-    log.info("done: %d frames in %.1fs (%.1f fps) → %s", len(files), wall,
-             len(files) / max(wall, 1e-9), pose_path)
-    if isinstance(system, System):
-        log.info("timers:\n%s", system.timers.report())
-        print(system.report_summary())
-    else:
-        ok = sum(1 for m in system.metrics if m.get("result") != "FAILED")
-        print(f"DeviceSystem: {ok}/{len(system.metrics)} frames tracked, "
-              f"{system.n_relocalizations} relocalizations")
-    return 0
+        pose_path = os.path.join(out_dir, "out.txt")
+        system.write_poses(pose_path)
+        write_metrics_jsonl(os.path.join(out_dir, "metrics.jsonl"), system.metrics)
+        log.info("done: %d frames in %.1fs (%.1f fps) → %s", len(files), wall,
+                 len(files) / max(wall, 1e-9), pose_path)
+        if isinstance(system, System):
+            log.info("timers:\n%s", system.timers.report())
+            print(system.report_summary())
+        else:
+            if args.verbose:
+                log.info("timers:\n%s", TRACER.report())
+            ok = sum(1 for m in system.metrics if m.get("result") != "FAILED")
+            print(f"DeviceSystem: {ok}/{len(system.metrics)} frames tracked, "
+                  f"{system.n_relocalizations} relocalizations")
+        return 0
 
 
 if __name__ == "__main__":

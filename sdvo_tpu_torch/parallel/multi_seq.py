@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import contextlib
 import re
-import time
 import warnings
 from typing import Dict, List, Optional, Sequence
 
@@ -30,6 +29,7 @@ from sdvo_tpu_torch.device import deterministic_on, resolve_device
 from sdvo_tpu_torch.parallel.mesh import SeqShards, VOMesh, axis_devices, seq_groups, tree_map
 from sdvo_tpu_torch.pipeline.cuda_graph import GraphedCall
 from sdvo_tpu_torch.pipeline.device_system import DeviceSystem, DeviceVO, FrameOut, VOState
+from sdvo_tpu_torch.utils.timing import TRACER
 
 
 def stack_states(states: Sequence[VOState]) -> VOState:
@@ -219,9 +219,13 @@ class MultiSequenceSystem:
         batched program a group, while every sequence has a whole chunk
         left; a second call goes on where the first stopped. ``frame_steps``
         counts the lockstep frame steps of the last call (each one frame of
-        every sequence) and ``chunk_seconds`` the host time of each of its
-        chunks, up to the chunk's outputs on the host."""
-        self.frame_steps, self.chunk_seconds = 0, []
+        every sequence). While ``utils.timing.TRACER`` is on, each chunk is
+        the span ``multi_seq.chunk`` (which ends a dispatch), up to its
+        outputs on the host, around ``multi_seq.stack`` (the frames stacked,
+        converted and laid out), ``multi_seq.copy_in``, the joint chunk and
+        ``multi_seq.emit`` (the copies out and every sequence's ``_emit``,
+        after a synchronize)."""
+        self.frame_steps = 0
         with deterministic_on(self.groups[0][0]):  # a mesh's groups lie on devices of one type
             self._joint(sequences)
 
@@ -231,19 +235,24 @@ class MultiSequenceSystem:
         C = self.supersteps_per_chunk
         chunk_frames = C * per
         while all(ptr[i] + chunk_frames <= len(sequences[i]) for i in range(self.n_seq)):
-            t0 = time.perf_counter()
-            imgs = np.stack([np.stack(sequences[i][ptr[i]:ptr[i] + chunk_frames]).astype(np.float32)
-                             for i in range(self.n_seq)])  # (S, C·per, H, W)
-            imgs = imgs.reshape(self.n_seq, C, per, *imgs.shape[2:]).transpose(1, 0, 2, 3, 4)
-            imgs = torch.from_numpy(np.ascontiguousarray(imgs))  # (C, S, per, H, W)
-            imgs = imgs.to(self.groups[0][0]) if self.mesh is None else self.chunk_fn.place(imgs, images=True)
-            self._state, outs = self.chunk_fn(self._state, imgs)
-            if isinstance(outs, SeqShards):
-                outs = outs.gather(torch.device("cpu"))
-            outs = FrameOut(*[x.cpu().numpy() for x in outs])
-            for i, sub in enumerate(self.subs):
-                sub._emit(FrameOut(*[x[:, i] for x in outs]), chunk_frames)
-            self.chunk_seconds.append(time.perf_counter() - t0)
+            with TRACER.span("multi_seq.chunk", ends_dispatch=True):
+                with TRACER.span("multi_seq.stack"):
+                    imgs = np.stack([np.stack(sequences[i][ptr[i]:ptr[i] + chunk_frames]).astype(np.float32)
+                                     for i in range(self.n_seq)])  # (S, C·per, H, W)
+                    imgs = imgs.reshape(self.n_seq, C, per, *imgs.shape[2:]).transpose(1, 0, 2, 3, 4)
+                    imgs = torch.from_numpy(np.ascontiguousarray(imgs))  # (C, S, per, H, W)
+                with TRACER.span("multi_seq.copy_in"):
+                    imgs = (imgs.to(self.groups[0][0]) if self.mesh is None
+                            else self.chunk_fn.place(imgs, images=True))
+                self._state, outs = self.chunk_fn(self._state, imgs)
+                for dev, _ in self.groups:
+                    TRACER.sync(dev)
+                with TRACER.span("multi_seq.emit"):
+                    if isinstance(outs, SeqShards):
+                        outs = outs.gather(torch.device("cpu"))
+                    outs = FrameOut(*[x.cpu().numpy() for x in outs])
+                    for i, sub in enumerate(self.subs):
+                        sub._emit(FrameOut(*[x[:, i] for x in outs]), chunk_frames)
             self.frame_steps += chunk_frames
             for i in range(self.n_seq):
                 ptr[i] += chunk_frames

@@ -59,6 +59,7 @@ from sdvo_tpu_torch.optim.optimizer import LMSettings, tree_where
 from sdvo_tpu_torch.ops.window_sampler import sample_windows, sample_windows_grad, window_gather
 from sdvo_tpu_torch.pipeline.cuda_graph import GraphedCall
 from sdvo_tpu_torch.pipeline.system import FrameResult, System, SystemStatus
+from sdvo_tpu_torch.utils.timing import TRACER
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -105,6 +106,9 @@ class FrameOut(NamedTuple):
     n_matches: torch.Tensor
     n_filters: torch.Tensor
     n_points: torch.Tensor
+    align_iters: torch.Tensor  # (levels,) int32 K1's iterations a level, finest first
+    refine_iters: torch.Tensor  # () int32 K3's iterations
+    ba_solved: torch.Tensor  # () bool: a keyframe whose windowed BA solved (``do_ba``)
 
 
 class SuperstepConfig(NamedTuple):
@@ -170,7 +174,18 @@ class DeviceVO:
     (``LMSettings``; None: ``DEFAULT_ALIGN_SETTINGS``) go to the frame step's
     aligner, which reads what the JAX package's kernel path reads of them:
     ``max_iterations`` (tapered by 2 a level), ``min_rel_decrease`` and the
-    visualization fields."""
+    visualization fields.
+
+    The frame step's stages run in the spans ``device_vo.pyramid``,
+    ``.align`` (K1), ``.reproject`` (K2), ``.pose_refine`` (K3), ``.gate``
+    and ``.depth_filter`` (K4), the keyframe step's in ``device_vo.kf.tables``,
+    ``.kf.promote``, ``.kf.detect``, ``.kf.ba`` (``_run_ba``), ``.kf.evict``
+    and ``.kf.reference`` (``utils.timing``; nothing while the tracer is
+    off). A CUDA graph's replay runs no Python: the graph's stage map
+    (``Capture.stage_map()``, from one eager run under the profiler)
+    carries them to the replays. A frame's ``FrameOut`` also
+    holds K1's iterations a level, K3's iterations and whether the
+    keyframe's BA solved."""
 
     # the device path's aligner: a 10-iteration coarse budget, tapered by 2
     # a level towards the finest, with the relative-decrease exit at 2e-3
@@ -195,47 +210,53 @@ class DeviceVO:
     def _frame_step(self, state: VOState, image: torch.Tensor, is_kf: bool):
         cfg, cam = self.cfg, self.cam
         fx, fy, cx, cy = cam.fx, cam.fy, cam.cx, cam.cy
-        pyr = build_pyramid(image, cfg.levels)
+        with TRACER.span("device_vo.pyramid"):
+            pyr = build_pyramid(image, cfg.levels)
 
         # 2. sparse image alignment vs the reference keyframe (K1 per level)
-        T_est, rmse = self.aligner.align_precomputed(
-            state.T_cur_ref, (state.ref.align_patches, state.ref.align_J, state.ref.align_vis),
-            pyr.images, state.ref.feats, fx, fy, cx, cy)
-        T_cur_w = T_est.compose(state.ref.T_ref_w)
+        with TRACER.span("device_vo.align"):
+            T_est, rmse, align_iters = self.aligner.align_precomputed(
+                state.T_cur_ref, (state.ref.align_patches, state.ref.align_J, state.ref.align_vis),
+                pyr.images, state.ref.feats, fx, fy, cx, cy)
+            T_cur_w = T_est.compose(state.ref.T_ref_w)
 
         # 3. map reprojection + feature alignment (K2)
-        m, matches = reproject_device(
-            state.map, T_cur_w, pyr.base_gradient, fx, fy, cx, cy, cell_size=cfg.cell_size,
-            max_matches=cfg.max_matches, max_error=cfg.max_error, patch_size=cfg.patch_fa,
-            frame_salt=state.frame_id)
+        with TRACER.span("device_vo.reproject"):
+            m, matches = reproject_device(
+                state.map, T_cur_w, pyr.base_gradient, fx, fy, cx, cy, cell_size=cfg.cell_size,
+                max_matches=cfg.max_matches, max_error=cfg.max_error, patch_size=cfg.patch_fa,
+                frame_salt=state.frame_id)
 
         # 4. bearing-residual pose polish (K3)
-        pts_w = m.pt_pos[matches.pt_slot]
-        bearings = cam.backproject(matches.uv.to(self.dtype))
-        T_pol, _, _ = pose_refine(T_cur_w, pts_w, bearings, matches.good, max_iters=8,
-                                  min_rel_decrease=1e-3)
-        use_ref = matches.n_good >= 10
-        T_cur_w = SE3(torch.where(use_ref, T_pol.rotation, T_cur_w.rotation),
-                      torch.where(use_ref, T_pol.translation, T_cur_w.translation))
+        with TRACER.span("device_vo.pose_refine"):
+            pts_w = m.pt_pos[matches.pt_slot]
+            bearings = cam.backproject(matches.uv.to(self.dtype))
+            T_pol, _, refine_iters = pose_refine(T_cur_w, pts_w, bearings, matches.good, max_iters=8,
+                                                 min_rel_decrease=1e-3)
+            use_ref = matches.n_good >= 10
+            T_cur_w = SE3(torch.where(use_ref, T_pol.rotation, T_cur_w.rotation),
+                          torch.where(use_ref, T_pol.translation, T_cur_w.translation))
 
         # 5. tracking-quality gate with pose freeze on failure
-        ref_obs = state.ref.feats.valid.to(torch.int32).sum()
-        fail_now = (matches.n_good < cfg.min_tracked) | ((ref_obs - matches.n_good) > cfg.max_dropped)
-        failed = state.failed | fail_now
-        T_cur_w = tree_where(failed, state.ref.T_ref_w, T_cur_w)
+        with TRACER.span("device_vo.gate"):
+            ref_obs = state.ref.feats.valid.to(torch.int32).sum()
+            fail_now = (matches.n_good < cfg.min_tracked) | ((ref_obs - matches.n_good) > cfg.max_dropped)
+            failed = state.failed | fail_now
+            T_cur_w = tree_where(failed, state.ref.T_ref_w, T_cur_w)
 
         # 6. depth-filter update with per-filter relative poses (K4)
-        filt = state.filt
-        kf_slots = filt.bank.kf_slot.to(torch.int64)
-        R_rel = torch.einsum("ij,ckj->cik", T_cur_w.rotation, m.kf_R[kf_slots])
-        t_rel = T_cur_w.translation[None] - torch.einsum("cik,ck->ci", R_rel, m.kf_t[kf_slots])
-        bank, converged = update_filters(
-            filt.bank, SE3(R_rel, t_rel), pyr.base_image, fx, fy, cx, cy,
-            kf_counter=m.kf_counter, patch_size=cfg.patch_filter, num_steps=cfg.epipolar_steps,
-            staleness=cfg.staleness, convergence_factor=cfg.convergence_factor)
-        converged = converged & ~failed
-        filt = filt._replace(bank=bank, pending=filt.pending | converged,
-                             pend_mu=torch.where(converged, bank.mu, filt.pend_mu))
+        with TRACER.span("device_vo.depth_filter"):
+            filt = state.filt
+            kf_slots = filt.bank.kf_slot.to(torch.int64)
+            R_rel = torch.einsum("ij,ckj->cik", T_cur_w.rotation, m.kf_R[kf_slots])
+            t_rel = T_cur_w.translation[None] - torch.einsum("cik,ck->ci", R_rel, m.kf_t[kf_slots])
+            bank, converged = update_filters(
+                filt.bank, SE3(R_rel, t_rel), pyr.base_image, fx, fy, cx, cy,
+                kf_counter=m.kf_counter, patch_size=cfg.patch_filter, num_steps=cfg.epipolar_steps,
+                staleness=cfg.staleness, convergence_factor=cfg.convergence_factor)
+            converged = converged & ~failed
+            filt = filt._replace(bank=bank, pending=filt.pending | converged,
+                                 pend_mu=torch.where(converged, bank.mu, filt.pend_mu))
 
         # once tracking is lost the map/filter state freezes; only the frame
         # counter advances
@@ -250,12 +271,15 @@ class DeviceVO:
             failed=failed,
         )
         if is_kf:
-            state, T_cur_w = self._keyframe_step(state, pyr, T_cur_w, matches)
+            state, T_cur_w, ba_solved = self._keyframe_step(state, pyr, T_cur_w, matches)
+        else:
+            ba_solved = torch.zeros_like(failed)
         out = FrameOut(
             R=T_cur_w.rotation, t=T_cur_w.translation, ok=~failed, is_kf=(~failed) & is_kf,
             rmse=rmse, n_matches=matches.n_good,
             n_filters=state.filt.bank.valid.to(torch.int32).sum(),
             n_points=state.map.pt_valid.to(torch.int32).sum(),
+            align_iters=align_iters, refine_iters=refine_iters, ba_solved=ba_solved,
         )
         return state, out
 
@@ -279,176 +303,184 @@ class DeviceVO:
         i32 = torch.int32
         H_img, W_img = pyr.base_image.shape
 
-        # 7. allocate the keyframe slot
-        slot = torch.argmax((~m.kf_valid).to(i32))
-        onehot = torch.arange(K, device=dev) == slot
-        kf_R = torch.where(onehot[:, None, None], _orthonormalize(T_cur_w.rotation)[None], m.kf_R)
-        kf_t = torch.where(onehot[:, None], T_cur_w.translation[None], m.kf_t)
-        kf_valid = m.kf_valid | onehot
-        kf_frame_id = torch.where(onehot, state.frame_id - 1, m.kf_frame_id)
+        with TRACER.span("device_vo.kf.tables"):
+            # 7. allocate the keyframe slot
+            slot = torch.argmax((~m.kf_valid).to(i32))
+            onehot = torch.arange(K, device=dev) == slot
+            kf_R = torch.where(onehot[:, None, None], _orthonormalize(T_cur_w.rotation)[None], m.kf_R)
+            kf_t = torch.where(onehot[:, None], T_cur_w.translation[None], m.kf_t)
+            kf_valid = m.kf_valid | onehot
+            kf_frame_id = torch.where(onehot, state.frame_id - 1, m.kf_frame_id)
 
-        # 8. features of the new keyframe: the frame's matches (rows 0..M)
-        f_patch, f_gx, f_gy, f_ok = self._grad_patches(pyr.base_gradient, matches.uv)
-        pad = F - M
+            # 8. features of the new keyframe: the frame's matches (rows 0..M)
+            f_patch, f_gx, f_gy, f_ok = self._grad_patches(pyr.base_gradient, matches.uv)
+            pad = F - M
 
-        def rows(x, fill=0):
-            return torch.cat([x, torch.full((pad,) + x.shape[1:], fill, dtype=x.dtype, device=dev)])
+            def rows(x, fill=0):
+                return torch.cat([x, torch.full((pad,) + x.shape[1:], fill, dtype=x.dtype, device=dev)])
 
-        row_uv = rows(matches.uv.to(dtype))
-        # the reference writes ``-jnp.ones(...).at[:M].set(pt_slot)``, which
-        # binds as ``-(…)``: matched rows hold −slot (detached from their
-        # points, except slot 0) and pad rows −1. Kept so that both packages
-        # agree state for state; ROADMAP.md lists the fix for both.
-        row_pt = -rows(matches.pt_slot.to(i32), 1)
-        row_val = rows(matches.good & f_ok, False)
-        row_patch, row_gx, row_gy = rows(f_patch), rows(f_gx), rows(f_gy)
-        row_ok = rows(f_ok, False)
+            row_uv = rows(matches.uv.to(dtype))
+            # the reference writes ``-jnp.ones(...).at[:M].set(pt_slot)``, which
+            # binds as ``-(…)``: matched rows hold −slot (detached from their
+            # points, except slot 0) and pad rows −1. Kept so that both packages
+            # agree state for state; ROADMAP.md lists the fix for both.
+            row_pt = -rows(matches.pt_slot.to(i32), 1)
+            row_val = rows(matches.good & f_ok, False)
+            row_patch, row_gx, row_gy = rows(f_patch), rows(f_gx), rows(f_gy)
+            row_ok = rows(f_ok, False)
 
-        # 9. promote pending depth filters to CANDIDATE points, anchored in
-        #    their HOST keyframe's feature table
-        pv, p_idx = topk_stable(filt.pending.to(i32), NP)
-        p_live = pv > 0
-        depth = 1.0 / torch.clamp(filt.pend_mu[p_idx], min=1e-9)
-        host = filt.bank.kf_slot[p_idx].to(torch.int64)
-        p_kf = filt.bank.bearing_ref[p_idx] * depth[:, None]
-        p_w = torch.einsum("nji,nj->ni", m.kf_R[host], p_kf - m.kf_t[host])
-        ar = torch.arange(NP, device=dev)
-        earlier = (host[None, :] == host[:, None]) & (ar[None, :] < ar[:, None]) & p_live[None, :]
-        rank = earlier.to(i32).sum(1)
-        kk = min(NP, F)
-        fval, fidx = topk_stable((~m.feat_valid).to(i32), kk)
-        rank_c = torch.clamp(rank, max=kk - 1).to(torch.int64)
-        fi = fidx[host, rank_c]
-        host_row_free = (fval[host, rank_c] > 0) & (rank == rank_c)
-        pt_slots, pt_free = alloc_free_slots(m.pt_valid, NP)
-        p_add = p_live & pt_free & host_row_free & filt.fa_ok[p_idx] & ~frozen
+        with TRACER.span("device_vo.kf.promote"):
+            # 9. promote pending depth filters to CANDIDATE points, anchored in
+            #    their HOST keyframe's feature table
+            pv, p_idx = topk_stable(filt.pending.to(i32), NP)
+            p_live = pv > 0
+            depth = 1.0 / torch.clamp(filt.pend_mu[p_idx], min=1e-9)
+            host = filt.bank.kf_slot[p_idx].to(torch.int64)
+            p_kf = filt.bank.bearing_ref[p_idx] * depth[:, None]
+            p_w = torch.einsum("nji,nj->ni", m.kf_R[host], p_kf - m.kf_t[host])
+            ar = torch.arange(NP, device=dev)
+            earlier = (host[None, :] == host[:, None]) & (ar[None, :] < ar[:, None]) & p_live[None, :]
+            rank = earlier.to(i32).sum(1)
+            kk = min(NP, F)
+            fval, fidx = topk_stable((~m.feat_valid).to(i32), kk)
+            rank_c = torch.clamp(rank, max=kk - 1).to(torch.int64)
+            fi = fidx[host, rank_c]
+            host_row_free = (fval[host, rank_c] > 0) & (rank == rank_c)
+            pt_slots, pt_free = alloc_free_slots(m.pt_valid, NP)
+            p_add = p_live & pt_free & host_row_free & filt.fa_ok[p_idx] & ~frozen
 
-        def pt_set(tbl, value):
-            return tbl.index_copy(0, pt_slots, torch.where(
-                p_add.reshape((-1,) + (1,) * (tbl.ndim - 1)), value, tbl[pt_slots]))
+            def pt_set(tbl, value):
+                return tbl.index_copy(0, pt_slots, torch.where(
+                    p_add.reshape((-1,) + (1,) * (tbl.ndim - 1)), value, tbl[pt_slots]))
 
-        pt_pos = pt_set(m.pt_pos, p_w.to(dtype))
-        pt_type = pt_set(m.pt_type, torch.full_like(m.pt_type[:NP], int(PointType.CANDIDATE)))
-        pt_valid = pt_set(m.pt_valid, torch.ones_like(m.pt_valid[:NP]))
-        pt_succ = pt_set(m.pt_succ, torch.zeros_like(m.pt_succ[:NP]))
-        pt_fail = pt_set(m.pt_fail, torch.zeros_like(m.pt_fail[:NP]))
-        taken = torch.zeros_like(filt.pending).index_copy(0, p_idx, p_live & ~frozen)
-        filt = filt._replace(pending=filt.pending & ~taken)
+            pt_pos = pt_set(m.pt_pos, p_w.to(dtype))
+            pt_type = pt_set(m.pt_type, torch.full_like(m.pt_type[:NP], int(PointType.CANDIDATE)))
+            pt_valid = pt_set(m.pt_valid, torch.ones_like(m.pt_valid[:NP]))
+            pt_succ = pt_set(m.pt_succ, torch.zeros_like(m.pt_succ[:NP]))
+            pt_fail = pt_set(m.pt_fail, torch.zeros_like(m.pt_fail[:NP]))
+            taken = torch.zeros_like(filt.pending).index_copy(0, p_idx, p_live & ~frozen)
+            filt = filt._replace(pending=filt.pending & ~taken)
 
-        def row_write(tbl, row):
-            new = torch.where(onehot.reshape((K,) + (1,) * (tbl.ndim - 1)), row[None], tbl)
-            return torch.where(frozen, tbl, new)
+            def row_write(tbl, row):
+                new = torch.where(onehot.reshape((K,) + (1,) * (tbl.ndim - 1)), row[None], tbl)
+                return torch.where(frozen, tbl, new)
 
-        m = m._replace(
-            kf_R=torch.where(frozen, m.kf_R, kf_R), kf_t=torch.where(frozen, m.kf_t, kf_t),
-            kf_valid=torch.where(frozen, m.kf_valid, kf_valid),
-            kf_frame_id=torch.where(frozen, m.kf_frame_id, kf_frame_id),
-            kf_counter=torch.where(frozen, m.kf_counter, m.kf_counter + 1),
-            kf_img0=row_write(m.kf_img0, pyr.base_image),
-            feat_uv=row_write(m.feat_uv, row_uv), feat_point=row_write(m.feat_point, row_pt),
-            feat_valid=row_write(m.feat_valid, row_val), feat_patch=row_write(m.feat_patch, row_patch),
-            feat_gx=row_write(m.feat_gx, row_gx), feat_gy=row_write(m.feat_gy, row_gy),
-            feat_ok=row_write(m.feat_ok, row_ok),
-            pt_pos=torch.where(frozen, m.pt_pos, pt_pos), pt_type=torch.where(frozen, m.pt_type, pt_type),
-            pt_valid=torch.where(frozen, m.pt_valid, pt_valid),
-            pt_succ=torch.where(frozen, m.pt_succ, pt_succ), pt_fail=torch.where(frozen, m.pt_fail, pt_fail),
-        )
-        # the promoted observation rows: (host, fi); not-added promotions go to
-        # a spare block of rows that is cut off again (mode="drop")
-        flat = torch.where(p_add, host * F + fi, K * F + fi)
+            m = m._replace(
+                kf_R=torch.where(frozen, m.kf_R, kf_R), kf_t=torch.where(frozen, m.kf_t, kf_t),
+                kf_valid=torch.where(frozen, m.kf_valid, kf_valid),
+                kf_frame_id=torch.where(frozen, m.kf_frame_id, kf_frame_id),
+                kf_counter=torch.where(frozen, m.kf_counter, m.kf_counter + 1),
+                kf_img0=row_write(m.kf_img0, pyr.base_image),
+                feat_uv=row_write(m.feat_uv, row_uv), feat_point=row_write(m.feat_point, row_pt),
+                feat_valid=row_write(m.feat_valid, row_val), feat_patch=row_write(m.feat_patch, row_patch),
+                feat_gx=row_write(m.feat_gx, row_gx), feat_gy=row_write(m.feat_gy, row_gy),
+                feat_ok=row_write(m.feat_ok, row_ok),
+                pt_pos=torch.where(frozen, m.pt_pos, pt_pos), pt_type=torch.where(frozen, m.pt_type, pt_type),
+                pt_valid=torch.where(frozen, m.pt_valid, pt_valid),
+                pt_succ=torch.where(frozen, m.pt_succ, pt_succ), pt_fail=torch.where(frozen, m.pt_fail, pt_fail),
+            )
+            # the promoted observation rows: (host, fi); not-added promotions go to
+            # a spare block of rows that is cut off again (mode="drop")
+            flat = torch.where(p_add, host * F + fi, K * F + fi)
 
-        def hscat(tbl, newv):
-            tail = tbl.shape[2:]
-            padded = torch.cat([tbl.reshape((K * F,) + tail), tbl.new_zeros((F,) + tail)])
-            padded = padded.index_put((flat,), newv.to(tbl.dtype))
-            return padded[: K * F].reshape(tbl.shape)
+            def hscat(tbl, newv):
+                tail = tbl.shape[2:]
+                padded = torch.cat([tbl.reshape((K * F,) + tail), tbl.new_zeros((F,) + tail)])
+                padded = padded.index_put((flat,), newv.to(tbl.dtype))
+                return padded[: K * F].reshape(tbl.shape)
 
-        ones = torch.ones((NP,), dtype=torch.bool, device=dev)
-        m = m._replace(
-            feat_uv=hscat(m.feat_uv, filt.bank.uv_ref[p_idx]), feat_point=hscat(m.feat_point, pt_slots),
-            feat_valid=hscat(m.feat_valid, ones), feat_patch=hscat(m.feat_patch, filt.fa_patch[p_idx]),
-            feat_gx=hscat(m.feat_gx, filt.fa_gx[p_idx]), feat_gy=hscat(m.feat_gy, filt.fa_gy[p_idx]),
-            feat_ok=hscat(m.feat_ok, ones),
-        )
+            ones = torch.ones((NP,), dtype=torch.bool, device=dev)
+            m = m._replace(
+                feat_uv=hscat(m.feat_uv, filt.bank.uv_ref[p_idx]), feat_point=hscat(m.feat_point, pt_slots),
+                feat_valid=hscat(m.feat_valid, ones), feat_patch=hscat(m.feat_patch, filt.fa_patch[p_idx]),
+                feat_gx=hscat(m.feat_gx, filt.fa_gx[p_idx]), feat_gy=hscat(m.feat_gy, filt.fa_gy[p_idx]),
+                feat_ok=hscat(m.feat_ok, ones),
+            )
 
-        # 10. re-detection + depth-filter seeding
-        p_cam_p, uvp = _project_uv(T_cur_w, p_w, fx, fy, cx, cy)
-        inb_p = _in_border(p_cam_p, uvp, W_img, H_img)
-        gc, gr = W_img // cfg.cell_size, H_img // cfg.cell_size
-        occ_uv = torch.cat([row_uv, uvp.to(dtype)])
-        occ_val = torch.cat([row_val, p_add & inb_p])
-        cellx = torch.clamp(torch.clamp(occ_uv[:, 0] / cfg.cell_size, -1.0, float(gc)).to(i32), 0, gc - 1)
-        celly = torch.clamp(torch.clamp(occ_uv[:, 1] / cfg.cell_size, -1.0, float(gr)).to(i32), 0, gr - 1)
-        occ = torch.zeros((gr * gc,), dtype=i32, device=dev).index_add(
-            0, (celly * gc + cellx).to(torch.int64), occ_val.to(i32)).reshape(gr, gc) > 0
-        uv_det, _, det_val = detect_gradient_by_value(pyr.base_gradient, cfg.grad_threshold,
-                                                      cfg.cell_size, occupied=occ)
-        C_det = uv_det.shape[0]
-        z_m = T_cur_w.apply(m.pt_pos[matches.pt_slot])[..., 2]
-        depth_mean = _masked_median(z_m, matches.good, fill=1.0)
-        depth_min = torch.where(matches.good, z_m, torch.full_like(z_m, float("inf"))).min()
-        depth_min = torch.where(torch.isfinite(depth_min), depth_min, torch.full_like(depth_min, 0.1))
-        w_i, org_i, ok_i = window_gather(pyr.base_image, uv_det, win_h=12)
-        s_patch, s_ok2 = sample_windows(w_i, uv_det - org_i, cfg.patch_filter)
-        sg_patch, sg_gx, sg_gy, sg_ok = self._grad_patches(pyr.base_gradient, uv_det)
-        new_bank = init_filters(
-            uv_det.to(dtype), cam.backproject(uv_det.to(dtype)), s_patch, kf_slot=slot.to(i32),
-            depth_mean=torch.clamp(depth_mean, min=1e-3), depth_min=torch.clamp(0.5 * depth_min, min=1e-4),
-            kf_counter=m.kf_counter, new_valid=det_val & ok_i & s_ok2 & ~frozen, dtype=dtype)
-        f_slots, f_free = alloc_free_slots(filt.bank.valid | filt.pending, C_det)
-        ins = new_bank.valid & f_free
+        with TRACER.span("device_vo.kf.detect"):
+            # 10. re-detection + depth-filter seeding
+            p_cam_p, uvp = _project_uv(T_cur_w, p_w, fx, fy, cx, cy)
+            inb_p = _in_border(p_cam_p, uvp, W_img, H_img)
+            gc, gr = W_img // cfg.cell_size, H_img // cfg.cell_size
+            occ_uv = torch.cat([row_uv, uvp.to(dtype)])
+            occ_val = torch.cat([row_val, p_add & inb_p])
+            cellx = torch.clamp(torch.clamp(occ_uv[:, 0] / cfg.cell_size, -1.0, float(gc)).to(i32), 0, gc - 1)
+            celly = torch.clamp(torch.clamp(occ_uv[:, 1] / cfg.cell_size, -1.0, float(gr)).to(i32), 0, gr - 1)
+            occ = torch.zeros((gr * gc,), dtype=i32, device=dev).index_add(
+                0, (celly * gc + cellx).to(torch.int64), occ_val.to(i32)).reshape(gr, gc) > 0
+            uv_det, _, det_val = detect_gradient_by_value(pyr.base_gradient, cfg.grad_threshold,
+                                                          cfg.cell_size, occupied=occ)
+            C_det = uv_det.shape[0]
+            z_m = T_cur_w.apply(m.pt_pos[matches.pt_slot])[..., 2]
+            depth_mean = _masked_median(z_m, matches.good, fill=1.0)
+            depth_min = torch.where(matches.good, z_m, torch.full_like(z_m, float("inf"))).min()
+            depth_min = torch.where(torch.isfinite(depth_min), depth_min, torch.full_like(depth_min, 0.1))
+            w_i, org_i, ok_i = window_gather(pyr.base_image, uv_det, win_h=12)
+            s_patch, s_ok2 = sample_windows(w_i, uv_det - org_i, cfg.patch_filter)
+            sg_patch, sg_gx, sg_gy, sg_ok = self._grad_patches(pyr.base_gradient, uv_det)
+            new_bank = init_filters(
+                uv_det.to(dtype), cam.backproject(uv_det.to(dtype)), s_patch, kf_slot=slot.to(i32),
+                depth_mean=torch.clamp(depth_mean, min=1e-3), depth_min=torch.clamp(0.5 * depth_min, min=1e-4),
+                kf_counter=m.kf_counter, new_valid=det_val & ok_i & s_ok2 & ~frozen, dtype=dtype)
+            f_slots, f_free = alloc_free_slots(filt.bank.valid | filt.pending, C_det)
+            ins = new_bank.valid & f_free
 
-        def scatter_field(old, new):
-            return old.index_copy(0, f_slots, torch.where(
-                ins.reshape((-1,) + (1,) * (old.ndim - 1)), new.to(old.dtype), old[f_slots]))
+            def scatter_field(old, new):
+                return old.index_copy(0, f_slots, torch.where(
+                    ins.reshape((-1,) + (1,) * (old.ndim - 1)), new.to(old.dtype), old[f_slots]))
 
-        bank = FilterBank(*[scatter_field(o, n) for o, n in zip(filt.bank, new_bank)])
-        filt = DeviceFilters(
-            bank=bank, fa_patch=scatter_field(filt.fa_patch, sg_patch),
-            fa_gx=scatter_field(filt.fa_gx, sg_gx), fa_gy=scatter_field(filt.fa_gy, sg_gy),
-            fa_ok=scatter_field(filt.fa_ok, sg_ok),
-            pending=scatter_field(filt.pending, torch.zeros_like(ins)), pend_mu=filt.pend_mu,
-        )
+            bank = FilterBank(*[scatter_field(o, n) for o, n in zip(filt.bank, new_bank)])
+            filt = DeviceFilters(
+                bank=bank, fa_patch=scatter_field(filt.fa_patch, sg_patch),
+                fa_gx=scatter_field(filt.fa_gx, sg_gx), fa_gy=scatter_field(filt.fa_gy, sg_gy),
+                fa_ok=scatter_field(filt.fa_ok, sg_ok),
+                pending=scatter_field(filt.pending, torch.zeros_like(ins)), pend_mu=filt.pend_mu,
+            )
 
-        # 11. windowed Schur bundle adjustment
-        m, T_kf_post = self._run_ba(m, slot, frozen)
-        T_cur_w = tree_where(frozen, T_cur_w, T_kf_post)
+        with TRACER.span("device_vo.kf.ba"):
+            # 11. windowed Schur bundle adjustment
+            m, T_kf_post, ba_solved = self._run_ba(m, slot, frozen)
+            T_cur_w = tree_where(frozen, T_cur_w, T_kf_post)
 
-        # 12. sliding-window eviction
-        m_e, evicted = evict_furthest_keyframe(m, slot, cfg.max_keyframes)
-        m = tree_where(frozen, m, m_e)
-        drop = (~frozen) & (evicted >= 0) & (bank.kf_slot == evicted)
-        filt = filt._replace(bank=filt.bank._replace(valid=filt.bank.valid & ~drop),
-                             pending=filt.pending & ~drop)
+        with TRACER.span("device_vo.kf.evict"):
+            # 12. sliding-window eviction
+            m_e, evicted = evict_furthest_keyframe(m, slot, cfg.max_keyframes)
+            m = tree_where(frozen, m, m_e)
+            drop = (~frozen) & (evicted >= 0) & (bank.kf_slot == evicted)
+            filt = filt._replace(bank=filt.bank._replace(valid=filt.bank.valid & ~drop),
+                                 pending=filt.pending & ~drop)
 
-        # 13. new tracking reference: the keyframe's feature row plus the
-        #     freshly promoted candidates in rows M..M+NP
-        feat_point_s = take(m.feat_point, slot)
-        feat_pt = torch.clamp(feat_point_s, 0, P - 1).to(torch.int64)
-        fvalid = take(m.feat_valid, slot) & (feat_point_s >= 0) & m.pt_valid[feat_pt]
-        p_ref = T_cur_w.apply(m.pt_pos[feat_pt])
-        p_ref_p, uvp_post = _project_uv(T_cur_w, m.pt_pos[pt_slots], fx, fy, cx, cy)
-        track_valid = p_add & _in_border(p_ref_p, uvp_post, W_img, H_img) & m.pt_valid[pt_slots]
+        with TRACER.span("device_vo.kf.reference"):
+            # 13. new tracking reference: the keyframe's feature row plus the
+            #     freshly promoted candidates in rows M..M+NP
+            feat_point_s = take(m.feat_point, slot)
+            feat_pt = torch.clamp(feat_point_s, 0, P - 1).to(torch.int64)
+            fvalid = take(m.feat_valid, slot) & (feat_point_s >= 0) & m.pt_valid[feat_pt]
+            p_ref = T_cur_w.apply(m.pt_pos[feat_pt])
+            p_ref_p, uvp_post = _project_uv(T_cur_w, m.pt_pos[pt_slots], fx, fy, cx, cy)
+            track_valid = p_add & _in_border(p_ref_p, uvp_post, W_img, H_img) & m.pt_valid[pt_slots]
 
-        def splice(base, mid):
-            return torch.cat([base[:M], mid, base[M + NP:]])
+            def splice(base, mid):
+                return torch.cat([base[:M], mid, base[M + NP:]])
 
-        feats = AlignFeatures(
-            uv_host=splice(take(m.feat_uv, slot).to(dtype), uvp_post.to(dtype)),
-            host_idx=torch.zeros((F,), dtype=i32, device=dev),
-            points_ref=splice(p_ref.to(dtype), p_ref_p.to(dtype)),
-            valid=splice(fvalid & (p_ref[..., 2] > 1e-3), track_valid & (p_ref_p[..., 2] > 1e-3)),
-        )
-        t_patches, t_J, t_vis = self.aligner.precompute_ref_windows(pyr.images, feats, fx, fy)
-        new_ref = TrackRef(pyr_images=tuple(pyr.images), T_ref_w=T_cur_w, ref_slot=slot.to(i32),
-                           feats=feats, align_patches=t_patches, align_J=t_J, align_vis=t_vis)
-        ref = tree_where(frozen, state.ref, new_ref)
-        T_cur_ref = tree_where(frozen, state.T_cur_ref, SE3.identity(dtype=dtype, device=dev))
-        return state._replace(map=m, filt=filt, ref=ref, T_cur_ref=T_cur_ref), T_cur_w
+            feats = AlignFeatures(
+                uv_host=splice(take(m.feat_uv, slot).to(dtype), uvp_post.to(dtype)),
+                host_idx=torch.zeros((F,), dtype=i32, device=dev),
+                points_ref=splice(p_ref.to(dtype), p_ref_p.to(dtype)),
+                valid=splice(fvalid & (p_ref[..., 2] > 1e-3), track_valid & (p_ref_p[..., 2] > 1e-3)),
+            )
+            t_patches, t_J, t_vis = self.aligner.precompute_ref_windows(pyr.images, feats, fx, fy)
+            new_ref = TrackRef(pyr_images=tuple(pyr.images), T_ref_w=T_cur_w, ref_slot=slot.to(i32),
+                               feats=feats, align_patches=t_patches, align_J=t_J, align_vis=t_vis)
+            ref = tree_where(frozen, state.ref, new_ref)
+            T_cur_ref = tree_where(frozen, state.T_cur_ref, SE3.identity(dtype=dtype, device=dev))
+        return state._replace(map=m, filt=filt, ref=ref, T_cur_ref=T_cur_ref), T_cur_w, ba_solved
 
     def _run_ba(self, m: DeviceMap, new_slot: torch.Tensor, frozen: torch.Tensor):
         """Local BA over the arena window; landmarks compacted to ``ba_points``,
-        gauge = the two oldest keyframes fixed; chi² observation pruning."""
+        gauge = the two oldest keyframes fixed; chi² observation pruning.
+        Returns (map, the new keyframe's pose, ``do_ba``: whether the solve
+        was kept)."""
         cfg, cam = self.cfg, self.cam
         K, F = m.feat_valid.shape
         P = m.pt_pos.shape[0]
@@ -486,7 +518,7 @@ class DeviceVO:
         pt_pos = m.pt_pos.index_copy(0, sel_p, torch.where((p_live & do_ba)[:, None], pts_out, m.pt_pos[sel_p]))
         bad = do_ba & obs_ok & (chi2_obs > 5.991)
         m = m._replace(kf_R=kf_R, kf_t=kf_t, pt_pos=pt_pos, feat_valid=m.feat_valid & ~bad.reshape(K, F))
-        return orphan_point_cleanup(m), SE3(take(kf_R, new_slot), take(kf_t, new_slot))
+        return orphan_point_cleanup(m), SE3(take(kf_R, new_slot), take(kf_t, new_slot)), do_ba
 
     # ------------------------------------------------------------- superstep
     def superstep(self, state: VOState, images: torch.Tensor):
@@ -544,6 +576,23 @@ class DeviceVO:
 # ===========================================================================
 
 
+def count_frames(outs: FrameOut, n: int, period: int):
+    """Adds the first ``n`` frames of a chunk's outputs (numpy, leading (C,
+    period) axes) to ``TRACER``'s counters: ``lm_align_level.iterations``
+    and ``.launches`` (K1 a level a frame), ``pose_refine.iterations`` and
+    ``.launches`` (K3 once a frame), ``device_vo.keyframe_steps`` (frames
+    that ran the keyframe step: the last of each superstep) and
+    ``device_vo.ba_solves`` (of them, those whose BA solved). A stream of a
+    batched launch counts as a launch."""
+    its = outs.align_iters.reshape(-1, outs.align_iters.shape[-1])[:n].astype(np.int64)
+    TRACER.count("lm_align_level.iterations", int(its.sum()))
+    TRACER.count("lm_align_level.launches", its.size)
+    TRACER.count("pose_refine.iterations", int(outs.refine_iters.reshape(-1)[:n].astype(np.int64).sum()))
+    TRACER.count("pose_refine.launches", n)
+    TRACER.count("device_vo.keyframe_steps", sum(1 for i in range(n) if i % period == period - 1))
+    TRACER.count("device_vo.ba_solves", int(outs.ba_solved.reshape(-1)[:n].sum()))
+
+
 def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
     out = np.zeros((n,) + a.shape[1:], a.dtype)
     out[: min(len(a), n)] = a[:n]
@@ -576,6 +625,16 @@ class DeviceSystem:
     ``index_add``s and ``hscat``'s ``index_put`` would otherwise sum by
     atomic adds in a new order every run, so a run gives the same bits every
     time.
+
+    While ``utils.timing.TRACER`` is on, ``add_image`` records the spans
+    ``device_system.bootstrap`` (a host ``System`` frame, ``_pack``
+    included) and ``device_system.buffer`` (a frame's conversion and
+    append), and ``_dispatch`` the span ``device_system.dispatch`` (which
+    ends a dispatch) around ``device_system.stack``,
+    ``device_system.copy_in``, the chunk, and ``device_system.emit`` (the
+    copies out and ``_emit``, after a synchronize, so that it holds no wait
+    for the chunk); ``_emit`` adds to the counters (``count_frames``).
+    Nothing of it changes a result.
     """
 
     def __init__(self, config: Config, camera: Optional[PinholeCamera] = None, seed: int = 0,
@@ -739,18 +798,20 @@ class DeviceSystem:
     # ------------------------------------------------------------------ api
     def add_image(self, image: np.ndarray, timestamp: float = 0.0):
         if self.state is None:
-            r = self.host.add_image(np.asarray(image), timestamp)
-            self.trajectory.append(None if r == FrameResult.FAILED else self.host.trajectory[-1])
-            self.metrics.append(self.host.metrics[-1])
-            # (re-)enter the device path once tracking is healthy AND the
-            # reference frame is a keyframe: right after relocalization it is a
-            # plain tracked frame with no cached patches
-            if (self.host.status == SystemStatus.PROCESS_NEW_FRAME
-                    and self.host.ref_frame is not None
-                    and self.host.ref_frame.kf_slot is not None):
-                self._pack()
+            with TRACER.span("device_system.bootstrap"):
+                r = self.host.add_image(np.asarray(image), timestamp)
+                self.trajectory.append(None if r == FrameResult.FAILED else self.host.trajectory[-1])
+                self.metrics.append(self.host.metrics[-1])
+                # (re-)enter the device path once tracking is healthy AND the
+                # reference frame is a keyframe: right after relocalization it is a
+                # plain tracked frame with no cached patches
+                if (self.host.status == SystemStatus.PROCESS_NEW_FRAME
+                        and self.host.ref_frame is not None
+                        and self.host.ref_frame.kf_slot is not None):
+                    self._pack()
             return
-        self._buffer.append(np.asarray(image, np.float32))
+        with TRACER.span("device_system.buffer"):
+            self._buffer.append(np.asarray(image, np.float32))
         if len(self._buffer) >= self.supersteps_per_chunk * self.scfg.period:
             self._dispatch(self.supersteps_per_chunk)
 
@@ -776,20 +837,29 @@ class DeviceSystem:
     def _dispatch(self, n_supersteps: int, n_real_tail: Optional[int] = None):
         per = self.scfg.period
         n = n_supersteps * per
-        imgs = np.stack(self._buffer[:n]).reshape(n_supersteps, per, *self._buffer[0].shape)
-        self._buffer = self._buffer[n:]
-        with deterministic_on(self.device):
-            self.state, outs = self.vo.run_chunk(self.state, torch.as_tensor(imgs, dtype=self.dtype,
-                                                                              device=self.device))
-        self._emit(FrameOut(*[x.cpu().numpy() for x in outs]),
-                   n if n_real_tail is None else (n - per + n_real_tail))
+        with TRACER.span("device_system.dispatch", ends_dispatch=True):
+            with TRACER.span("device_system.stack"):
+                imgs = np.stack(self._buffer[:n]).reshape(n_supersteps, per, *self._buffer[0].shape)
+            self._buffer = self._buffer[n:]
+            with deterministic_on(self.device):
+                with TRACER.span("device_system.copy_in"):
+                    images = torch.as_tensor(imgs, dtype=self.dtype, device=self.device)
+                self.state, outs = self.vo.run_chunk(self.state, images)
+            TRACER.sync(self.device)
+            with TRACER.span("device_system.emit"):
+                self._emit(FrameOut(*[x.cpu().numpy() for x in outs]),
+                           n if n_real_tail is None else (n - per + n_real_tail))
         if bool(self.state.failed):
             self._relocalize()
 
     def _emit(self, outs: FrameOut, n_emit: int):
         """Append the first ``n_emit`` frames of a chunk's outputs (numpy,
-        leading (C, period) axes) to ``trajectory`` and ``metrics``."""
+        leading (C, period) axes) to ``trajectory`` and ``metrics``; while
+        the tracer is on, add their iterations, launches, keyframe steps and
+        BA solves to its counters (``count_frames``)."""
         per = self.scfg.period
+        if TRACER.on:
+            count_frames(outs, n_emit, per)
         for i in range(n_emit):
             c, p = divmod(i, per)
             ok = bool(outs.ok[c, p])

@@ -118,7 +118,7 @@ class System:
         self.device = resolve_device(device)
         cfg_a = config.algorithm
         self.log = get_logger("System")
-        self.timers = Timers()
+        self.timers = Timers("system.")
         self.dtype = torch.float32 if config.compute_dtype == "float32" else torch.float64
         self._np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
 

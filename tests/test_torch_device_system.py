@@ -177,6 +177,84 @@ def test_state_round_trip(runs):
         np.testing.assert_array_equal(a, b)
 
 
+def _spied(ds, emitted):
+    """``ds`` with each ``_emit`` call's outputs and frame count kept in
+    ``emitted``."""
+    emit = ds._emit
+
+    def spy(outs, n):
+        emitted.append((outs, n))
+        return emit(outs, n)
+
+    ds._emit = spy
+    return ds
+
+
+def _without_wall(metrics):
+    return [{k: v for k, v in m.items() if k != "wall_ms"} for m in metrics]
+
+
+def test_the_tracer_records_each_dispatch_and_changes_no_bit():
+    """The port alone over the fixture's scene and settings, with the tracer
+    off and on: the same trajectory and metrics bit for bit (the host's wall
+    clock aside); off nothing is recorded; on, the two bootstrap frames and
+    the six buffered frames give ``device_system.bootstrap`` and one
+    ``device_system.buffer`` each, carrying the number of the dispatch that
+    takes them, and the dispatch a ``device_system.dispatch`` span holding
+    ``stack``, ``copy_in`` and ``emit`` once each and every device stage of
+    its frames; the counters are the sums of the emitted ``FrameOut``
+    fields, K1's iterations within each level's budget (10, 8, 6, 4 from
+    the coarsest level), K3's within 8, the BA's flag only on keyframes."""
+    from sdvo_tpu_torch.utils.timing import TRACER
+
+    _, images, _ = make_sequence(np.random.default_rng(7), n_frames=8)
+    frames = [np.asarray(im, np.float64) for im in images]
+
+    def run(emitted):
+        ds = _spied(DeviceSystem(load_config(overrides=OVERRIDES), camera=PinholeCamera.create(**CAM),
+                                 device="cpu", **KW), emitted)
+        for i, f in enumerate(frames):
+            ds.add_image(f, float(i))
+        ds.finish()
+        return ds
+
+    before = (len(TRACER.spans), len(TRACER.counts))
+    off = run([])
+    assert not TRACER.on and (len(TRACER.spans), len(TRACER.counts)) == before
+    emitted = []
+    with TRACER.recording() as tr:
+        on = run(emitted)
+    assert len(on.trajectory) == len(off.trajectory) == 8 and all(T is not None for T in on.trajectory)
+    np.testing.assert_array_equal(np.asarray(on.trajectory), np.asarray(off.trajectory))
+    assert _without_wall(on.metrics) == _without_wall(off.metrics)
+
+    spans = tr.spans
+    assert None not in spans and tr.dispatches == 1
+    assert [(s.dispatch, s.parent) for s in spans if s.name == "device_system.bootstrap"] == [(0, -1)] * 2
+    assert [(s.dispatch, s.parent) for s in spans if s.name == "device_system.buffer"] == [(0, -1)] * 6
+    (d,) = [k for k, s in enumerate(spans) if s.name == "device_system.dispatch"]
+    inside = [s.name for s in spans if s.parent == d]
+    assert [n for n in inside if n.startswith("device_system.")] == [
+        "device_system.stack", "device_system.copy_in", "device_system.emit"]
+    assert all(spans[k].dispatch == 0 for k in range(d, len(spans)))
+    frame_stages = ("pyramid", "align", "reproject", "pose_refine", "gate", "depth_filter")
+    kf_stages = ("tables", "promote", "detect", "ba", "evict", "reference")
+    count = {n: sum(s.name == n for s in spans) for n in set(s.name for s in spans)}
+    assert all(count[f"device_vo.{n}"] == 6 for n in frame_stages), count
+    assert all(count[f"device_vo.kf.{n}"] == 2 for n in kf_stages), count
+
+    ((outs, n),) = emitted
+    its = outs.align_iters.reshape(n, -1)
+    budget = [on.vo.aligner.level_iterations(lv) for lv in range(its.shape[1])]
+    assert budget == [4, 6, 8, 10] and (its >= 0).all() and (its <= budget).all(), its
+    assert ((0 <= outs.refine_iters) & (outs.refine_iters <= 8)).all()
+    assert not outs.ba_solved[:, :-1].any()
+    assert tr.counter("lm_align_level.iterations") == its.sum() and tr.counter("lm_align_level.launches") == 4 * n
+    assert tr.counter("pose_refine.iterations") == outs.refine_iters.sum() and tr.counter("pose_refine.launches") == n
+    assert tr.counter("device_vo.keyframe_steps") == 2
+    assert tr.counter("device_vo.ba_solves") == outs.ba_solved.sum()
+
+
 def test_port_imports_without_jax():
     """Every module of the port (the CLI, both axes of ``parallel``, ``viz``,
     ``utils.io``, ``dataio.poses``, ``pipeline.streaming``, ``image.stack``

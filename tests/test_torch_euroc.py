@@ -85,7 +85,7 @@ def test_five_level_alignment_matches_jax(frames):
     tfeats = AlignFeatures(torch.from_numpy(uv), torch.zeros(len(uv), dtype=torch.int32), torch.from_numpy(pts),
                            torch.from_numpy(valid))
     ttabs = tvo.aligner.precompute_ref_windows(pr.images, tfeats, fx, fy)
-    tT, _ = tvo.aligner.align_precomputed(SE3.identity(), ttabs, pc.images, tfeats, fx, fy, cx, cy)
+    tT, _, _ = tvo.aligner.align_precomputed(SE3.identity(), ttabs, pc.images, tfeats, fx, fy, cx, cy)
 
     def project(R, t):
         p = pts.astype(np.float64) @ np.asarray(R, np.float64).T + np.asarray(t, np.float64)

@@ -361,6 +361,45 @@ def test_failed_sequence_is_isolated_and_relocalizes(runs):
     assert "FAILED" not in r1[joint_end:], r1
 
 
+def test_the_tracer_records_each_joint_chunk_and_changes_no_bit(runs):
+    """The bootstrap and the first joint chunk of both sequences again with
+    the tracer on: the fixture's frames bit for bit; the chunk a
+    ``multi_seq.chunk`` span (one dispatch) holding ``stack``, ``copy_in``
+    and ``emit`` once each; every bootstrap frame a
+    ``device_system.bootstrap`` span; the counters the sums of the emitted
+    ``FrameOut`` fields of both sequences under the vmap, K1's iterations
+    within each level's budget."""
+    from sdvo_tpu_torch.utils.timing import TRACER
+
+    from test_torch_device_system import _spied
+
+    seqs = [s[:JAX_FRAMES] for s in runs["seqs"]]
+    ms = _multi(runs["uniforms"])
+    emitted = []
+    for sub in ms.subs:
+        _spied(sub, emitted)
+    with TRACER.recording() as tr:
+        ms.bootstrap(seqs)
+        ms.joint(seqs)
+    for i, sub in enumerate(ms.subs):
+        np.testing.assert_array_equal(np.asarray(sub.trajectory),
+                                      np.asarray(runs["multi"][i]["trajectory"][:JAX_FRAMES]), err_msg=str(i))
+    spans = tr.spans
+    (c,) = [k for k, s in enumerate(spans) if s.name == "multi_seq.chunk"]
+    assert tr.dispatches == 1 and spans[c].parent == -1 and spans[c].dispatch == 0
+    assert [s.name for s in spans if s.parent == c and s.name.startswith("multi_seq.")] == [
+        "multi_seq.stack", "multi_seq.copy_in", "multi_seq.emit"]
+    assert sum(s.name == "device_system.bootstrap" for s in spans) == 2 * N_SEQ
+    assert len(emitted) == N_SEQ and all(n == JAX_FRAMES - 2 for _, n in emitted)
+    its = np.concatenate([o.align_iters.reshape(n, -1) for o, n in emitted])
+    assert (its >= 0).all() and (its <= [4, 6, 8, 10]).all(), its
+    assert tr.counter("lm_align_level.iterations") == its.sum()
+    assert tr.counter("lm_align_level.launches") == its.size == 4 * N_SEQ * (JAX_FRAMES - 2)
+    assert tr.counter("pose_refine.iterations") == sum(o.refine_iters.sum() for o, _ in emitted)
+    assert tr.counter("device_vo.keyframe_steps") == 2 * N_SEQ
+    assert tr.counter("device_vo.ba_solves") == sum(o.ba_solved.sum() for o, _ in emitted)
+
+
 def test_mesh_of_two_cpu_devices_matches_no_mesh(runs):
     """With a mesh of two CPU devices each sequence is a group of its own (a
     batch of one on its device): the same results and the same camera

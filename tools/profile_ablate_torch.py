@@ -55,17 +55,19 @@ def _no_ba(self, m, new_slot, frozen):
     from sdvo_tpu_torch.geometry.se3 import SE3
     from sdvo_tpu_torch.pipeline.device_system import take
 
-    return m, SE3(take(m.kf_R, new_slot), take(m.kf_t, new_slot))
+    return m, SE3(take(m.kf_R, new_slot), take(m.kf_t, new_slot)), frozen & False
 
 
 def _no_keyframe(self, state, pyr, T_cur_w, matches):
-    return state, T_cur_w
+    return state, T_cur_w, state.failed & False
 
 
 def _no_alignment(self, T_init, tables, cur_pyramid, feats, fx, fy, cx, cy):
     import torch
 
-    return T_init, torch.full((), 0.5, dtype=T_init.translation.dtype, device=T_init.translation.device)
+    dev = T_init.translation.device
+    return (T_init, torch.full((), 0.5, dtype=T_init.translation.dtype, device=dev),
+            torch.zeros((len(cur_pyramid),), dtype=torch.int32, device=dev))
 
 
 def _no_filters(bank, *args, **kwargs):
@@ -89,7 +91,9 @@ def _no_reprojection(m, T_cur_w, cur_gradient, fx, fy, cx, cy, *, max_matches, *
 
 
 def _no_pose(T_init, points_w, bearings, valid, **kwargs):
-    return T_init, None, None
+    import torch
+
+    return T_init, None, torch.zeros((), dtype=torch.int32, device=T_init.translation.device)
 
 
 def ablations():
