@@ -29,6 +29,7 @@ from sdvo_tpu_torch.device import deterministic_on, resolve_device
 from sdvo_tpu_torch.parallel.mesh import SeqShards, VOMesh, axis_devices, seq_groups, tree_map
 from sdvo_tpu_torch.pipeline.cuda_graph import GraphedCall
 from sdvo_tpu_torch.pipeline.device_system import DeviceSystem, DeviceVO, FrameOut, VOState
+from sdvo_tpu_torch.pipeline.staging import FrameStaging, staged_dtype
 from sdvo_tpu_torch.utils.timing import TRACER
 
 
@@ -160,7 +161,10 @@ class MultiSequenceSystem:
     atomic adds in whatever order the threads reach them, and a sequence
     would not get the same bits from one run to the next. ``chunk_fn`` is
     the joint chunk (``multi_chunk_fn``): on the card a replay of a CUDA graph
-    a group (``chunk_fn.graph``). ``ransac_uniforms``: one array (or None)
+    a group (``chunk_fn.graph``). Its frames reach the device through one
+    host buffer kept on the system (``pipeline.staging.FrameStaging``:
+    8-bit frames stay 8-bit up to the device, pinned on the card).
+    ``ransac_uniforms``: one array (or None)
     per sequence, for the host bootstrap. ``ds_kwargs`` go to every
     ``DeviceSystem``.
     """
@@ -185,6 +189,7 @@ class MultiSequenceSystem:
         self.supersteps_per_chunk = supersteps_per_chunk
         self.vo = self.subs[0].vo  # shared kernels: one program for every sequence
         self.chunk_fn = multi_chunk_fn(self.vo, mesh)
+        self._staging = FrameStaging(self.groups[0][0])
 
     @property
     def period(self) -> int:
@@ -221,10 +226,16 @@ class MultiSequenceSystem:
         counts the lockstep frame steps of the last call (each one frame of
         every sequence). While ``utils.timing.TRACER`` is on, each chunk is
         the span ``multi_seq.chunk`` (which ends a dispatch), up to its
-        outputs on the host, around ``multi_seq.stack`` (the frames stacked,
-        converted and laid out), ``multi_seq.copy_in``, the joint chunk and
-        ``multi_seq.emit`` (the copies out and every sequence's ``_emit``,
-        after a synchronize)."""
+        outputs on the host, around ``multi_seq.stack`` (the frames written
+        in place into the staging buffer, ``pipeline.staging.FrameStaging``,
+        laid out (C, S, per, H, W) as the chunk reads them),
+        ``multi_seq.copy_in`` (its copy to the device and the conversion to
+        float32 there), the joint chunk and ``multi_seq.emit`` (the copies
+        out and every sequence's ``_emit``, after a synchronize); the
+        counters ``multi_seq.staged_bytes`` and ``multi_seq.staged_frames``
+        add the bytes copied to the device and the frames of every sequence
+        staged (H·W bytes a frame for 8-bit frames, 4·H·W for any other
+        type)."""
         self.frame_steps = 0
         with deterministic_on(self.groups[0][0]):  # a mesh's groups lie on devices of one type
             self._joint(sequences)
@@ -237,14 +248,24 @@ class MultiSequenceSystem:
         while all(ptr[i] + chunk_frames <= len(sequences[i]) for i in range(self.n_seq)):
             with TRACER.span("multi_seq.chunk", ends_dispatch=True):
                 with TRACER.span("multi_seq.stack"):
-                    imgs = np.stack([np.stack(sequences[i][ptr[i]:ptr[i] + chunk_frames]).astype(np.float32)
-                                     for i in range(self.n_seq)])  # (S, C·per, H, W)
-                    imgs = imgs.reshape(self.n_seq, C, per, *imgs.shape[2:]).transpose(1, 0, 2, 3, 4)
-                    imgs = torch.from_numpy(np.ascontiguousarray(imgs))  # (C, S, per, H, W)
+                    chunks = [[np.asarray(f) for f in sequences[i][ptr[i]:ptr[i] + chunk_frames]]
+                              for i in range(self.n_seq)]
+                    buf = self._staging.buffer((C, self.n_seq, per, *chunks[0][0].shape),
+                                               staged_dtype(f for frames in chunks for f in frames))
+                    for i, frames in enumerate(chunks):
+                        for j, frame in enumerate(frames):
+                            c, p = divmod(j, per)
+                            np.copyto(buf[c, i, p], frame)
                 with TRACER.span("multi_seq.copy_in"):
-                    imgs = (imgs.to(self.groups[0][0]) if self.mesh is None
-                            else self.chunk_fn.place(imgs, images=True))
+                    if self.mesh is None:
+                        imgs = self._staging.to_device()
+                    else:
+                        imgs = SeqShards([x.to(torch.float32, copy=True)
+                                          for x in self.chunk_fn.place(self._staging.host, images=True)], 1)
+                TRACER.count("multi_seq.staged_bytes", buf.nbytes)
+                TRACER.count("multi_seq.staged_frames", self.n_seq * chunk_frames)
                 self._state, outs = self.chunk_fn(self._state, imgs)
+                del imgs  # the next chunk's images take its memory
                 for dev, _ in self.groups:
                     TRACER.sync(dev)
                 with TRACER.span("multi_seq.emit"):

@@ -717,6 +717,39 @@ def test_graphed_joint_chunk_matches_the_eager_loop():
 
 
 @pytest.mark.gpu
+def test_joint_chunks_of_8bit_frames_give_the_bits_of_float32_frames():
+    """Two joint chunks over two textures of the KITTI-sized ridge scene,
+    rounded to whole grey levels, chunks of two supersteps: handed over as
+    8-bit frames they are staged in a pinned uint8 buffer and converted on
+    the card; handed over as float32 frames, in a pinned float32 buffer. Both
+    give the same trajectories and the same final state, bit for bit."""
+    import numpy as np
+
+    from sdvo_tpu_torch.config import load_config
+    from sdvo_tpu_torch.dataio.synthetic import render_bench_sequences
+    from sdvo_tpu_torch.parallel import MultiSequenceSystem
+
+    _cuda()
+    u8 = [[np.clip(np.rint(f), 0, 255).astype(np.uint8) for f in r[0]]
+          for r in render_bench_sequences((0, 4), 2 + 2 * 6)]
+    f32 = [[f.astype(np.float32) for f in s] for s in u8]
+    done = {}
+    for name, seqs, dtype in (("uint8", u8, torch.uint8), ("float32", f32, torch.float32)):
+        ms = MultiSequenceSystem(load_config(overrides=BENCH_OVERRIDES), 2, supersteps_per_chunk=2)
+        ms.bootstrap(seqs)
+        ms.joint(seqs)
+        assert ms.frame_steps == 12
+        host = ms._staging.host
+        assert host.is_pinned() and host.dtype == dtype, (name, host.dtype)
+        trajectories = [s.trajectory for s in ms.subs]
+        assert all(T is not None for t in trajectories for T in t), name
+        done[name] = ([np.asarray(t) for t in trajectories], ms._state)
+    (ta, sa), (tb, sb) = done["uint8"], done["float32"]
+    assert all(np.array_equal(a, b) for a, b in zip(ta, tb))
+    assert _same_bits(sa, sb)
+
+
+@pytest.mark.gpu
 def test_a_capture_that_fails_raises():
     """No fallback: a function that reads a device value on the host cannot
     be captured, and ``GraphedCall`` raises instead of running it eagerly."""

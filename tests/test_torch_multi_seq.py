@@ -368,7 +368,9 @@ def test_the_tracer_records_each_joint_chunk_and_changes_no_bit(runs):
     and ``emit`` once each; every bootstrap frame a
     ``device_system.bootstrap`` span; the counters the sums of the emitted
     ``FrameOut`` fields of both sequences under the vmap, K1's iterations
-    within each level's budget."""
+    within each level's budget; ``multi_seq.staged_frames`` the frames of
+    both sequences, ``multi_seq.staged_bytes`` 4·H·W a frame (the float64
+    frames are staged as float32)."""
     from sdvo_tpu_torch.utils.timing import TRACER
 
     from test_torch_device_system import _spied
@@ -398,6 +400,97 @@ def test_the_tracer_records_each_joint_chunk_and_changes_no_bit(runs):
     assert tr.counter("pose_refine.iterations") == sum(o.refine_iters.sum() for o, _ in emitted)
     assert tr.counter("device_vo.keyframe_steps") == 2 * N_SEQ
     assert tr.counter("device_vo.ba_solves") == sum(o.ba_solved.sum() for o, _ in emitted)
+    H, W = seqs[0][0].shape
+    assert tr.counter("multi_seq.staged_frames") == N_SEQ * (JAX_FRAMES - 2)
+    assert tr.counter("multi_seq.staged_bytes") == 4 * H * W * tr.counter("multi_seq.staged_frames")
+
+
+def _images_as_stacked(seqs, starts, C, per):
+    """A joint chunk's images as the joint phase made them before it staged
+    frames through one buffer: each sequence's frames stacked and converted
+    by ``astype(np.float32)``, the sequences stacked, laid out (C, S, per,
+    H, W) by a transpose."""
+    imgs = np.stack([np.stack(s[a:a + C * per]).astype(np.float32) for s, a in zip(seqs, starts)])
+    return np.ascontiguousarray(imgs.reshape(len(seqs), C, per, *imgs.shape[2:]).transpose(1, 0, 2, 3, 4))
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float64"])
+def test_joint_hands_each_chunk_the_images_it_had_before(runs, dtype):
+    """Both sequences as 8-bit frames (staged as uint8) and as the fixture's
+    float64 frames (staged as float32): each joint chunk is given,
+    bit for bit, the float32 images the joint phase made before from the
+    same frames, out of one host buffer for both chunks; the tracer's
+    counters read ``element_size``·H·W bytes a staged frame; and the run
+    gives the fixture's trajectories bit for bit (the scene's frames are
+    whole grey levels, so both are the fixture's frames)."""
+    from sdvo_tpu_torch.utils.timing import TRACER
+
+    seqs = [[f.astype(dtype) for f in s] for s in runs["seqs"]]
+    ms = _multi(runs["uniforms"])
+    ms.bootstrap(seqs)
+    starts = list(ms._ptr)
+    chunk_fn, given, hosts = ms.chunk_fn, [], []
+
+    def spy(state, images):
+        given.append(images.clone())
+        hosts.append(ms._staging.host.data_ptr())
+        return chunk_fn(state, images)
+
+    ms.chunk_fn = spy
+    with TRACER.recording() as tr:
+        ms.joint(seqs)
+    C, per = ms.supersteps_per_chunk, ms.period
+    assert len(given) == 2 and hosts[0] == hosts[1]
+    host = ms._staging.host
+    assert host.dtype == (torch.uint8 if dtype == "uint8" else torch.float32)
+    for k, images in enumerate(given):
+        assert images.dtype == torch.float32
+        np.testing.assert_array_equal(images.numpy(), _images_as_stacked(seqs, [a + k * C * per for a in starts],
+                                                                          C, per), err_msg=str(k))
+    H, W = seqs[0][0].shape
+    assert tr.counter("multi_seq.staged_frames") == 2 * N_SEQ * C * per
+    assert tr.counter("multi_seq.staged_bytes") == host.element_size() * H * W * tr.counter("multi_seq.staged_frames")
+    for i, res in enumerate(ms.tail(seqs)):
+        np.testing.assert_array_equal(np.asarray(res["trajectory"]), np.asarray(runs["multi"][i]["trajectory"]),
+                                      err_msg=str(i))
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_the_staging_buffer_is_kept_until_the_frames_shape_or_type_changes(runs):
+    """The joint phase's host buffer is allocated at its first chunk and
+    kept from one call to the next; frames of another type (8-bit after
+    float64, float64 and 8-bit mixed) or of another size get a new one. Each
+    call stops at the chunk function, which records the images it is given:
+    float32, the frames' values in every case."""
+    ms = _multi(runs["uniforms"])
+    ms.bootstrap(runs["seqs"])
+    starts = list(ms._ptr)
+    C, per = ms.supersteps_per_chunk, ms.period
+    given = []
+
+    def stop(state, images):
+        given.append(images.clone())
+        raise _Stop
+
+    ms.chunk_fn = stop
+    f64 = runs["seqs"]
+    u8 = [[f.astype(np.uint8) for f in s] for s in f64]
+    mixed = [u8[0], f64[1]]
+    small = [[f[:200, :280] for f in s] for s in u8]
+    kept = []
+    for seqs in (f64, f64, u8, u8, mixed, mixed, small, small):
+        with pytest.raises(_Stop):
+            ms.joint(seqs)
+        kept.append(ms._staging.host)  # held, so a new buffer cannot take a freed one's memory
+        assert given[-1].dtype == torch.float32
+        np.testing.assert_array_equal(given[-1].numpy(), _images_as_stacked(seqs, starts, C, per))
+    assert [b.dtype for b in kept[::2]] == [torch.float32, torch.uint8, torch.float32, torch.uint8]
+    assert kept[7].shape == (C, N_SEQ, per, 200, 280)
+    ptrs = [b.data_ptr() for b in kept]
+    assert ptrs[0::2] == ptrs[1::2] and len(set(ptrs)) == 4, ptrs
 
 
 def test_mesh_of_two_cpu_devices_matches_no_mesh(runs):
