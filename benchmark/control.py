@@ -33,8 +33,7 @@ def readings_for_seed(cell, seed: int, seconds: float, control: bool, device, ca
     from benchmark.harness import check, drive
 
     t0 = time.perf_counter()
-    kw = {} if texture_size is None else {"texture_size": texture_size}
-    w = drive.run_window(cell, seed, seconds, False, device, cam=cam, **kw)
+    w = drive.run_window(cell, seed, seconds, False, device, cam=cam, texture_size=texture_size)
     out = {"seed": seed, "setup_s": w.t0 - t0, "window_s": w.t_end - w.t0, "frames": w.frames,
            "failed": sum(1 for k, (a, b) in enumerate(w.window_frames) for j in range(a, b)
                          if w.trajectories[k][j] is None)}
@@ -43,8 +42,8 @@ def readings_for_seed(cell, seed: int, seconds: float, control: bool, device, ca
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    cam = cam or scene_mod.camera()
-    ref = check.Reference(cell.config["settings"], cam, device)
+    cam = cam or scene_mod.camera(cell.config["camera"])
+    ref = check.Reference(cell.config["settings"], cam, device, package=cell.reference)
     t = time.perf_counter()
     outs = [ref.follow(s[1], s[4]) for s in cmp.steps]
     starts = [ref.repack(snap) for _, _, snap in cmp.starts]
@@ -52,7 +51,7 @@ def readings_for_seed(cell, seed: int, seconds: float, control: bool, device, ca
     out["program"] = check.readings(cmp, ref, outs, starts)
     out["frames_program"] = [check.per_frame(s[5], r) for s, r in zip(cmp.steps, outs)]
     if control:
-        ctrl = check.Reference(cell.config["settings"], cam, device, tf32=True)
+        ctrl = check.Reference(cell.config["settings"], cam, device, tf32=True, package=cell.reference)
         t = time.perf_counter()
         couts = [ctrl.follow(s[1], s[4]) for s in cmp.steps]
         cstarts = [ctrl.repack(snap) for _, _, snap in cmp.starts]

@@ -1,8 +1,9 @@
 """How ``correct`` is decided: the timed path's outputs against two
 witnesses that the program does not share, the scene's truth and the plain
-reference (``benchmark/reference``: the port's superstep and the packing of
-its start, frozen as plain PyTorch and run eagerly in float32 with TF32 off,
-with no kernel, no CUDA graph and no vmap).
+reference (``benchmark/reference``, or the package a configuration's
+``reference`` names: the port's superstep and the packing of its start,
+frozen as plain PyTorch and run eagerly in float32 with TF32 off, with no
+kernel, no CUDA graph and no vmap).
 
 **Every frame of the window, against the scene's truth** (``window_numbers``,
 from each stream's emitted ``trajectory`` and ``metrics``): on this scene
@@ -76,6 +77,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from benchmark.harness import spec
+
 # compared, each with its limit: against the reference, then against the truth
 NUMBERS = ("rmse_gap_group_median", "flag_gap", "start_gap", "frame_id_gap", "failed_frames", "keyframe_gap")
 WINDOW = ("failed_frames", "keyframe_gap", "drift", "ate_m")  # of every frame of the window
@@ -115,25 +118,12 @@ def TF32():
 
 
 # ----------------------------------------------------------- the reference
-def _ref_classes():
-    from benchmark.reference.align.image_alignment import AlignFeatures
-    from benchmark.reference.depth.filter import FilterBank
-    from benchmark.reference.geometry.se3 import SE3
-    from benchmark.reference.image.pyramid import ImagePyramid
-    from benchmark.reference.mapping.device_map import DeviceMap
-    from benchmark.reference.pipeline.device_system import DeviceFilters, TrackRef, VOState
-
-    return {c.__name__: c for c in (AlignFeatures, FilterBank, SE3, ImagePyramid, DeviceMap, DeviceFilters, TrackRef,
-                                          VOState)}
-
-
-def to_reference(x, dtype, classes=None):
+def to_reference(x, dtype, classes):
     """A tree of the program's state as the reference's: the same fields in
-    the reference's classes, floating tensors in ``dtype``, the rest
-    copied."""
+    the reference's ``classes`` (by name), floating tensors in
+    ``dtype``, the rest copied."""
     import torch
 
-    classes = classes or _ref_classes()
     if isinstance(x, torch.Tensor):
         return x.to(dtype) if x.is_floating_point() else x.clone()
     if isinstance(x, tuple) and hasattr(x, "_fields"):
@@ -147,16 +137,22 @@ def to_reference(x, dtype, classes=None):
 
 class Reference:
     """The reference in ``dtype`` (the configuration's float32) for a
-    configuration's ``settings`` and camera on ``device``; with ``tf32``
-    the control, whose matrix products round their inputs to TF32."""
+    configuration's ``settings`` and camera (``scene.camera``: intrinsics,
+    size and distortion) on ``device``, from the reference package named
+    ``package`` (the configuration's ``reference``: a dotted name, whose
+    ``__all__`` is ``benchmark.reference``'s); with ``tf32`` the control,
+    whose matrix products round their inputs to TF32."""
 
-    def __init__(self, settings: dict, cam, device, dtype: str = "float32", tf32: bool = False):
+    def __init__(self, settings: dict, cam, device, dtype: str = "float32", tf32: bool = False,
+                 package: str = spec.DEFAULT_REFERENCE):
+        import importlib
+
         import torch
 
-        from benchmark.reference.config import load_config
-
+        self.ref = importlib.import_module(package)
+        self.classes = {c.__name__: c for c in self.ref.STATE_CLASSES}
         sections = {k: dict(v) for k, v in settings.items() if isinstance(v, dict)}
-        self.config = load_config(overrides=sections).replace(compute_dtype=dtype)
+        self.config = self.ref.load_config(overrides=sections).replace(compute_dtype=dtype)
         self.cam = cam
         self.device = torch.device(device)
         self.dtype = getattr(torch, dtype)
@@ -173,12 +169,10 @@ class Reference:
         """The reference's ``DeviceVO`` (built once), with the configuration's
         superstep sizes and ``DeviceSystem``'s defaults."""
         if self._vo is None:
-            from benchmark.reference.geometry.camera import PinholeCamera
-            from benchmark.reference.pipeline.device_system import DeviceVO, superstep_config
-
-            cam = PinholeCamera.create(self.cam.fx, self.cam.fy, self.cam.cx, self.cam.cy, self.cam.width,
-                                       self.cam.height, dtype=self.dtype)
-            self._vo = DeviceVO(cam, superstep_config(self.config), dtype=self.dtype)
+            c = self.cam
+            cam = self.ref.PinholeCamera.create(c.fx, c.fy, c.cx, c.cy, c.width, c.height, dist=c.dist,
+                                                dtype=self.dtype)
+            self._vo = self.ref.DeviceVO(cam, self.ref.superstep_config(self.config), dtype=self.dtype)
         return self._vo
 
     def follow(self, state, frames: List[np.ndarray]) -> List[dict]:
@@ -187,13 +181,11 @@ class Reference:
         frame."""
         import torch
 
-        from benchmark.reference.device import deterministic_on
-
         vo = self.vo
         per = vo.cfg.period
-        st = to_reference(state, self.dtype)
+        st = to_reference(state, self.dtype, self.classes)
         out = []
-        with torch.no_grad(), deterministic_on(self.device), self._mode():
+        with torch.no_grad(), self.ref.deterministic_on(self.device), self._mode():
             for k in range(len(frames) // per):
                 imgs = torch.as_tensor(np.stack(frames[k * per:(k + 1) * per]).astype(np.float32),
                                        device=self.device).to(self.dtype)
@@ -209,16 +201,16 @@ class Reference:
 
         import torch
 
-        from benchmark.reference.pipeline.device_system import pack
+        def mine(x):
+            return to_reference(x, self.dtype, self.classes)
 
         host = types.SimpleNamespace(
-            arena=types.SimpleNamespace(**to_reference(snap["arena"], self.dtype)),
-            filters=to_reference(snap["filters"], self.dtype),
-            ref_frame=types.SimpleNamespace(**to_reference(snap["ref_frame"], self.dtype)),
+            arena=types.SimpleNamespace(**mine(snap["arena"])), filters=mine(snap["filters"]),
+            ref_frame=types.SimpleNamespace(**mine(snap["ref_frame"])),
             prev_rel=snap["prev_rel"], frame_count=snap["frame_count"], height=snap["height"],
             width=snap["width"])
         with torch.no_grad(), self._mode():
-            return pack(host, self.vo, self.device)
+            return self.ref.pack(host, self.vo, self.device)
 
 
 def host_snapshot(host) -> dict:

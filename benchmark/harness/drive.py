@@ -127,17 +127,24 @@ def port_config(settings: dict):
     return load_config(overrides=sections).replace(compute_dtype=settings["compute_dtype"])
 
 
-def port_camera(cam, dtype_name: str):
-    """The port's camera for a rehearsal's scaled camera (None at KITTI size:
-    the system's default is KITTI's camera 0)."""
-    if cam.width == scene_mod.KITTI_CAMERA["width"] and cam.height == scene_mod.KITTI_CAMERA["height"]:
+# the camera the port's ``System`` takes when it is given none: these intrinsics at the configuration's
+# ``settings.camera`` size, without distortion (``sdvo_tpu_torch/pipeline/system.py``)
+PORT_DEFAULT_INTRINSICS = (721.5377, 721.5377, 609.5593, 172.854)
+
+
+def port_camera(cam, config):
+    """The port's camera for ``cam`` (``scene.camera``: intrinsics, size and
+    distortion) under the port's ``config``: None where every field is the
+    system's default camera's, so the system builds its own."""
+    if ((cam.fx, cam.fy, cam.cx, cam.cy) == PORT_DEFAULT_INTRINSICS and not any(cam.dist)
+            and (cam.width, cam.height) == (config.camera.img_width, config.camera.img_height)):
         return None
     import torch
 
     from sdvo_tpu_torch.geometry.camera import PinholeCamera
 
-    dtype = torch.float32 if dtype_name == "float32" else torch.float64
-    return PinholeCamera.create(cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height, dtype=dtype)
+    dtype = torch.float32 if config.compute_dtype == "float32" else torch.float64
+    return PinholeCamera.create(cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height, dist=cam.dist, dtype=dtype)
 
 
 class Window:
@@ -152,26 +159,30 @@ class Window:
     collector's passes inside the window, a ``GCWatch``)."""
 
 
-def run_window(cell, seed: int, seconds: float, trace: bool, device, cam=None,
-               texture_size: int = scene_mod.TEXTURE_SIZE, fault=None) -> Window:
-    """Set-up and the window of ``cell`` (a ``spec.Cell``) on ``device``.
-    ``cam``/``texture_size``: the CPU rehearsal's smaller scene. ``fault``, a
-    test's hook, gets the system before the warm-up dispatch."""
+def run_window(cell, seed: int, seconds: float, trace: bool, device, cam=None, texture_size=None,
+               fault=None) -> Window:
+    """Set-up and the window of ``cell`` (a ``spec.Cell``) on ``device``, at
+    the camera and in the scene of its configuration's file. ``cam`` /
+    ``texture_size``: the CPU rehearsal's smaller scene (the file's camera
+    scaled, ``scene.camera(block, scale)``, and a smaller texture).
+    ``fault``, a test's hook, gets the system before the warm-up
+    dispatch."""
     import torch
 
     device = torch.device(device)
     cfg = cell.config
     traffic = cell.traffic
-    cam = cam or scene_mod.camera()
+    sc = scene_mod.Scene.of(cfg["scene"])
+    cam = cam or scene_mod.camera(cfg["camera"])
     n_seq = int(cfg.get("n_seq", 1))
-    rings = [scene_mod.build_ring(seed * n_seq + k if n_seq > 1 else seed, device, cam, texture_size)
+    rings = [scene_mod.build_ring(seed * n_seq + k if n_seq > 1 else seed, device, cam, sc, texture_size)
              for k in range(n_seq)]
     _sync(device)
     if device.type == "cuda":  # the device peak is the system's, not the renderer's
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     config = port_config(cfg["settings"])
-    camera = port_camera(cam, config.compute_dtype)
+    camera = port_camera(cam, config)
     w = Window()
     w.rings, w.streams, w.spans = rings, n_seq, Spans()
     w.slice, w.launches = None, None

@@ -14,6 +14,7 @@ from typing import Callable, Dict, List, Optional
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH_DIR)
+DEFAULT_REFERENCE = "benchmark.reference"  # a configuration's reference where its file names none
 
 
 def load_json(path: str) -> dict:
@@ -35,7 +36,14 @@ class Cell:
     """One entry of ``workloads`` with its configuration's file and its
     traffic file: ``name``, ``entry``, ``config`` (the configuration file's
     object), ``traffic`` (the cell file's object), ``end_to_end`` and
-    ``per_layer`` (the metrics reported in it)."""
+    ``per_layer`` (the metrics reported in it).
+
+    Of a configuration's file the harness reads ``system`` and ``n_seq``
+    (the system driven, ``harness/drive.py``), ``camera`` and ``scene``
+    (``benchmark/scene``), ``settings`` (the port's and the reference's
+    ``Config``) and ``reference`` (the reference package's dotted name,
+    ``DEFAULT_REFERENCE`` where it is absent). A configuration whose
+    ``settings.camera`` size is not its ``camera``'s is refused."""
 
     def __init__(self, bench: dict, name: str, bench_dir: str = BENCH_DIR):
         entries = {w["name"]: w for w in bench["workloads"]}
@@ -46,6 +54,10 @@ class Cell:
         configs = {c["name"]: c for c in bench["configs"]}
         self.config_entry = configs[self.entry["config"]]
         self.config = load_json(os.path.join(os.path.dirname(bench_dir), self.config_entry["file"]))
+        cam, size = self.config["camera"], self.config["settings"]["camera"]
+        if (size["img_width"], size["img_height"]) != (cam["width"], cam["height"]):
+            raise ValueError(f"configuration {self.config_entry['name']!r}: settings.camera is "
+                             f"{size['img_width']}x{size['img_height']}, its camera {cam['width']}x{cam['height']}")
         self.traffic = load_json(os.path.join(bench_dir, "workloads", f"{name}.json"))
         self.end_to_end = [m for m in bench["end_to_end"] if applies(m, name)]
         self.per_layer = [m for m in bench["per_layer"] if applies(m, name)]
@@ -54,6 +66,10 @@ class Cell:
     @property
     def system(self) -> str:
         return self.config["system"]
+
+    @property
+    def reference(self) -> str:
+        return self.config.get("reference", DEFAULT_REFERENCE)
 
 
 def reader(metric: str, bench_dir: str = BENCH_DIR) -> Callable:

@@ -72,16 +72,17 @@ def quarter_rates(w) -> list:
 
 def measure(cell, seed: int, seconds: float, trace: bool, device, t_start: float, cam=None,
             texture_size=None, fault=None, log=print) -> dict:
-    """One run of ``cell``: the window, the metrics, the check. Returns the
-    result object (the last line's)."""
+    """One run of ``cell``: the window, the metrics, the check, at the camera
+    and in the scene of its configuration's file (``cam``/``texture_size``:
+    the CPU rehearsal's smaller ones). Returns the result object (the last
+    line's)."""
     import numpy as np
     import torch
 
     from benchmark import scene as scene_mod
     from benchmark.harness import check, drive, gates, spec
 
-    kw = {} if texture_size is None else {"texture_size": texture_size}
-    w = drive.run_window(cell, seed, seconds, trace, device, cam=cam, fault=fault, **kw)
+    w = drive.run_window(cell, seed, seconds, trace, device, cam=cam, texture_size=texture_size, fault=fault)
     setup_s = w.t0 - t_start
     window_s = w.t_end - w.t0
     cuda = torch.device(device).type == "cuda"
@@ -120,7 +121,8 @@ def measure(cell, seed: int, seconds: float, trace: bool, device, t_start: float
     if cuda:
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    ref = check.Reference(cell.config["settings"], cam or scene_mod.camera(), device)
+    ref = check.Reference(cell.config["settings"], cam or scene_mod.camera(cell.config["camera"]), device,
+                          package=cell.reference)
     nums = check.readings(cmp, ref)
     judged = check.judge(nums, check.limits(cell))
     log("not compared: " + ", ".join(f"{k} {nums[k]!r}" for k in check.INFO), file=sys.stderr)

@@ -17,7 +17,8 @@ from benchmark import scene
 from benchmark.harness import program, spec
 from benchmark.harness.trace import Slice
 
-CAM = scene.camera(0.5)
+KITTI = spec.load_json(f"{spec.BENCH_DIR}/configs/kitti_mono.json")["camera"]
+CAM = scene.camera(KITTI, 0.5)
 SEED = 2 ** 31 + 11
 STAGE_MAP = (("k_pyr", "device_vo.pyramid"), ("k_lm", "device_vo.align"), ("Memcpy DtoD", "device_vo.align"),
              ("k_stack", ""), ("k_ba", "device_vo.kf.ba"))
@@ -204,7 +205,7 @@ def test_the_rehearsal_reads_the_host_spans_and_counters():
 
 
 def test_the_joint_rehearsal_reads_the_host_spans_and_counters():
-    res = _rehearse("kitti_mono_x8.offline", n_seq=2, cam=scene.camera(0.75), tex=2048, supersteps_per_chunk=1)
+    res = _rehearse("kitti_mono_x8.offline", n_seq=2, cam=scene.camera(KITTI, 0.75), tex=2048, supersteps_per_chunk=1)
     assert res["correct"] is True, res["check"]
     assert {"multi_seq.stack_ms_per_frame", "multi_seq.copy_in_ms_per_frame", "multi_seq.emit_ms_per_frame",
             "device_system.bootstrap_s", "device_vo.ba_solve_share", "lm_align_level.iterations_per_launch",

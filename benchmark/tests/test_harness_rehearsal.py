@@ -14,12 +14,13 @@ import torch
 from benchmark import scene
 from benchmark.harness import check, drive, spec
 
-CAM = scene.camera(0.5)
+KITTI = spec.load_json(f"{spec.BENCH_DIR}/configs/kitti_mono.json")["camera"]
+CAM = scene.camera(KITTI, 0.5)
 TEX = 1024
 SEED = 2 ** 31 + 11
 # two streams bootstrap in one call: at half size one of these textures finds
 # too few inliers in 30 frames, so the joint rehearsal runs at 3/4 size
-CAM_X8, TEX_X8 = scene.camera(0.75), 2048
+CAM_X8, TEX_X8 = scene.camera(KITTI, 0.75), 2048
 
 
 def cell(name, n_seq=None, **traffic):

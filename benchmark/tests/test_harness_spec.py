@@ -95,3 +95,23 @@ def test_a_reader_that_finds_nothing_leaves_its_metric_out(bench):
     run = SimpleNamespace(system="device_system", slice=None, launches=None, capture_s=None, frames=0,
                           supersteps=0, window_s=0.0, add_image_s=0.0, run_chunk_s=0.0, chunk_fn_s=0.0)
     assert spec.read_metrics(bench["per_layer"], run) == {}
+
+
+def test_a_configuration_is_read_whole(bench, tmp_path):
+    """The harness reads a configuration's camera, scene and reference from
+    its file; a file whose settings state another image size than its
+    camera's is refused."""
+    cell = spec.Cell(bench, "kitti_mono.offline")
+    assert cell.reference == spec.DEFAULT_REFERENCE == "benchmark.reference"
+    assert {"system", "n_seq", "camera", "scene", "settings"} <= set(cell.config)
+    root = tmp_path / "checkout"
+    shutil.copytree(spec.BENCH_DIR, root / "benchmark", ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    cfg = json.loads((root / "benchmark" / "configs" / "kitti_mono.json").read_text())
+    for key, value, error in (("reference", "benchmark.tests.planted_reference", None),
+                              ("camera", {**cfg["camera"], "width": 1240}, ValueError)):
+        (root / "benchmark" / "configs" / "kitti_mono.json").write_text(json.dumps({**cfg, key: value}))
+        if error is None:
+            assert spec.Cell(bench, "kitti_mono.offline", str(root / "benchmark")).reference == value
+        else:
+            with pytest.raises(error, match="settings.camera is 1241x376, its camera 1240x376"):
+                spec.Cell(bench, "kitti_mono.offline", str(root / "benchmark"))

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 
 from benchmark import scene
-from benchmark.harness import check, drive
+from benchmark.harness import check, drive, spec
 
 PER, FRAMES, FIRST = 3, 600, 30
 
@@ -15,8 +15,9 @@ def window(streams=2, fault=None):
     """A finished window of ``streams`` streams that track the truth exactly
     (frames ``FIRST``.. in the window), with ``fault(k, trajectory, metrics)``
     applied to each stream."""
-    poses = scene.ring_poses()
-    ring = scene.Ring(np.zeros((len(poses), 1, 1), np.uint8), poses)
+    sc = scene.Scene.of(spec.load_json(f"{spec.BENCH_DIR}/configs/kitti_mono.json")["scene"])
+    poses = sc.ring_poses()
+    ring = scene.Ring(np.zeros((len(poses), 1, 1), np.uint8), poses, sc.period)
     w = drive.Window()
     w.period, w.rings, w.window_frames = PER, [ring] * streams, [(FIRST, FRAMES)] * streams
     w.trajectories, w.metrics = [], []
